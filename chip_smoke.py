@@ -3,20 +3,34 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA GPU (Hopper: the CUDA kernel is built for sm_90a) and the
+Needs one CUDA GPU (Hopper: the CUDA kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
-  2. build: K2 from csrc/ with nvcc (K1 compiles through Triton's JIT)
-  3. K1 (MX quantize) against its plain version at the main-path shapes,
-     bit for bit
-  4. K2 (fused qkv top-k attention) against its plain version at the
-     main-path shape, both contracts, top-k and dense
-  5. the slice: DiT-XL/2 at full width (random weights from a seed,
+  2. build: K2 and K3 from csrc/, one nvcc each, started together (K1
+     compiles through Triton's JIT)
+  3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
+     shapes (bf16/f32 in, bfloat 0/16) and at the PixArt sites (f32 in,
+     flush, bfloat 0/32)
+  4. K2 (fused qkv top-k attention) against its plain version at the DiT
+     shape, both contracts, top-k and dense
+  5. K3 (split q/k/v top-k attention) against its plain version at the
+     three PixArt-alpha 256^2 sites at 200 rows (self top-k two_step k=77,
+     self dense, cross dense S=120 with a caption-mask bias), both
+     contracts, f32 and bf16 output; then the domain cases at a small batch
+  6. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
      prequantized to bf16), 32 images with CFG (64 rows), 100 DDPM steps,
-     serving tier then exact tier; launch counts per forward checked, and
-     each kernel's launches per call site (shape, dtype, arguments) kept
-  6. two serving steps under torch.profiler: device busy share, top kernels
-  7. kernel times with CUDA events at every call site the slice launched
+     serving tier then exact tier
+  7. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
+     a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
+     caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
+     tier
+     In 6 and 7 every launch count is set to 0 just before a run and read
+     just after: each kernel of the path must have launched its per-forward
+     count times the steps, and no other kernel at all; each kernel's
+     launches per call site (shape, dtype, arguments) are kept
+  8. two serving steps of each slice under torch.profiler: device busy
+     share, top kernels
+  9. kernel times with CUDA events at every call site the slices launched
      (calls queued behind a GPU sleep, so that the host's launch time
      stays out), beside their bounds and plain versions, weighted by those
      launches
@@ -25,6 +39,7 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 
 import collections
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -38,8 +53,11 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 F32_INSTR_PER_S = 33.5e12
 
-STEPS = 100
-IMAGES = 32
+DIT_STEPS = 100
+DIT_IMAGES = 32
+PIXART_STEPS = 20
+PIXART_PROMPTS = 100  # the reference's batch (SURVEY.md, PixArt-alpha 256^2)
+CAPTION_TOKENS = 120
 
 
 def time_ms(fn, reps, warmup=2):
@@ -73,6 +91,55 @@ def fail(msg):
     sys.exit(1)
 
 
+def attention_bound(cells, n, s, d, in_bytes, out_bytes, k, key_bits, topk,
+                    extra_bytes=0):
+    """The least time (ms) and its term for one top-k attention call over
+    ``cells`` (row, head) cells of n queries and s keys of width d.  Bytes:
+    q, k, v read once and the output written once (plus ``extra_bytes``).
+    Tensor-core work: the true scores and (top-k) the predictor over every
+    (query, key) pair at the true head dim, PV over the k keys a row
+    selects (all s when dense; the serving tier may keep more on ties,
+    which stays below the bytes term even at all s).  CUDA-core work: a
+    compare per key per bisection pass, plus max, exp, sum and divide of
+    the softmax, for every pair.  Memory traffic and both kinds of
+    operations can overlap, so the bound is the largest of the three."""
+    rows = cells * n
+    pairs = rows * s
+    nbytes = cells * ((n + 2 * s) * d * in_bytes + n * d * out_bytes) \
+        + extra_bytes
+    kk = min(k, s)
+    t_tc = 1e3 * (2 * pairs * d * (2 if topk else 1)
+                  + 2 * rows * kk * d) / BF16_OPS_PER_S
+    t_cc = 1e3 * pairs * ((key_bits if topk else 0) + 4) / F32_INSTR_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    bound, by = max((t_bytes, "bytes"), (t_tc, "operations"),
+                    (t_cc, "operations"))
+    return bound, by, dict(bytes=t_bytes, tensor_core=t_tc, cuda_core=t_cc)
+
+
+def mix(sites):
+    """Launch-weighted means of a kernel's per-site times and bounds, and
+    the term that sets most of the weighted bound."""
+    total = sum(st["launches"] for st in sites)
+    out = {key: sum(st[key] * st["launches"] for st in sites) / total
+           for key in ("ms", "plain_ms", "bound_ms")}
+    share = collections.Counter()
+    for st in sites:
+        share[st["bound_by"]] += st["bound_ms"] * st["launches"]
+    out["bound_by"] = share.most_common(1)[0][0]
+    return out
+
+
+def caption_bias(B, S, device, shortest=8):
+    """(B, 1, 1, S) additive bias of caption masks whose valid lengths run
+    from ``shortest`` to S: (1 - mask) * -10000, as PixArt's forward makes
+    it."""
+    import torch
+    valid = torch.linspace(shortest, S, B, device=device).round()
+    mask = (torch.arange(S, device=device)[None] < valid[:, None]).float()
+    return ((1 - mask) * -10000.0)[:, None, None, :], mask
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -81,14 +148,22 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mx_quantization_tpu_torch.models.dit import (DiT_models,
                                                       DiTQuantConfig, init_dit)
+    from mx_quantization_tpu_torch.models.pixart import (PixArtConfig,
+                                                         PixArtQuantConfig,
+                                                         init_pixart)
     from mx_quantization_tpu_torch.ops.kernels import build
+    from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
     from mx_quantization_tpu_torch.ops.kernels.quantize import (
         mx_quantize, mx_quantize_ref)
-    from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
-        SOURCE, fused_topk_attention_qkv, fused_topk_attention_qkv_ref)
     from mx_quantization_tpu_torch.utils.prequantize import prequantize_weights
     from mx_quantization_tpu_torch.workloads.dit import (dit_mx_specs,
                                                          sample_dit)
+    from mx_quantization_tpu_torch.workloads.pixart import (pixart_mx_specs,
+                                                            sample_pixart)
+    K1, K2, K3 = "mx_quantize", "fused_topk_attention_qkv", \
+        "fused_topk_attention"
+    wrappers = {K1: mx_quantize, K2: ta.fused_topk_attention_qkv,
+                K3: ta.fused_topk_attention}
 
     # ---- 1. device
     smi = subprocess.run(
@@ -104,46 +179,67 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # ---- 2. build
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)
+                ).to(dtype)
+
+    # ---- 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = build.build(SOURCE)
-    print(f"[build] {SOURCE} -> {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    sources = ((ta.SOURCE, ta.K2_DEFINES), (ta.SPLIT_SOURCE, ta.K3_DEFINES))
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(lambda sd: build.build(*sd), sources))
+    print(f"[build] {[lib.name for lib in libs]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Function pro" in line:
+                print(f"[build] {line.strip()[:150]}")
 
     # ---- 3. K1 against its plain version, bit for bit
     k1_err = 0.0
+
+    def check_k1(x, fmt="int8", **kw):
+        nonlocal k1_err
+        got = mx_quantize(x, fmt, 32, 8, **kw)
+        want = mx_quantize_ref(x, fmt, 32, 8, **kw)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, (got.float() - want.float()).abs().max().item())
+        if not torch.equal(got, want):
+            fail(f"K1 {tuple(x.shape)} {x.dtype} {fmt} {kw} differs")
+
+    # the DiT sites: bf16 and f32 input, bfloat 0/16
     for K in (1152, 4608):
-        base = torch.randn(16384, K, generator=gen, device=dev)
+        base = randn(16384, K)
         for dtype in (torch.bfloat16, torch.float32):
-            x = base.to(dtype)
             for fmt in ("int8", "fp8_e4m3"):
                 for bfloat in (0, 16):
-                    got = mx_quantize(x, fmt, 32, 8, bfloat=bfloat)
-                    want = mx_quantize_ref(x, fmt, 32, 8, bfloat=bfloat)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    k1_err = max(k1_err, err)
-                    if not torch.equal(got, want):
-                        fail(f"K1 {fmt} {dtype} bfloat={bfloat} K={K}: "
-                             f"max |diff| {err}")
+                    check_k1(base.to(dtype), fmt, bfloat=bfloat)
         print(f"[k1] (16384, {K}) bf16/f32 x int8/fp8_e4m3 x bfloat 0/16: "
               "bit-equal", flush=True)
-    del base, x, got, want
+    del base
+    # the PixArt sites: f32 activations, flush, bfloat=32 (the identity)
+    B2 = 2 * PIXART_PROMPTS
+    for shape in ((B2, 256, 1152), (B2, CAPTION_TOKENS, 1152),
+                  (B2, 256, 4608)):
+        x = randn(*shape)
+        x[0, 0, :32] = 1e-39   # a block of subnormals: flushed
+        x[1, 3, 32:64] *= 1e-38
+        for bfloat in (0, 32):
+            check_k1(x, flush=True, bfloat=bfloat)
+        print(f"[k1] {shape} f32 flush bfloat 0/32: bit-equal", flush=True)
+    del x
 
-    # ---- 4. K2 against its plain version at the main-path shape
-    B, N, H, D = 2 * IMAGES, 256, 16, 72
-    qkv = torch.randn(B, N, 3 * H * D, generator=gen, device=dev
-                      ).to(torch.bfloat16)
+    # ---- 4. K2 against its plain version at the DiT shape
+    B, N, H, D = 2 * DIT_IMAGES, 256, 16, 72
+    qkv = randn(B, N, 3 * H * D, dtype=torch.bfloat16)
     k2_err = 0.0
     for contract, k in (("serving", 154), ("serving", N), ("exact", 154),
                         ("exact", N)):
         for out_dtype in (torch.float32, torch.bfloat16):
             kw = dict(k=k, scale=D ** -0.5, key_bits=8, bfloat=16,
                       contract=contract, out_dtype=out_dtype)
-            got = fused_topk_attention_qkv(qkv, H, **kw).float()
-            want = fused_topk_attention_qkv_ref(qkv, H, **kw).float()
+            got = ta.fused_topk_attention_qkv(qkv, H, **kw).float()
+            want = ta.fused_topk_attention_qkv_ref(qkv, H, **kw).float()
             torch.cuda.synchronize()
             # f32: the kernel and the plain version share arithmetic and
             # summation order (tests/test_fused_attention_kernel.py bound);
@@ -161,7 +257,138 @@ def main():
                 fail(f"K2 {contract} k={k} {out_dtype} outside tolerance")
     del qkv, got, want
 
-    # ---- 5. the slice: DiT-XL/2, full width, both tiers
+    # ---- 5. K3 against its plain version: f32 output bit-equal, bf16
+    # output within one bf16 ulp
+    k3_err = 0.0
+
+    def check_k3(label, q, keys, values, bias, **kw):
+        nonlocal k3_err
+        got = ta.fused_topk_attention(q, keys, values, bias, **kw)
+        want = ta.fused_topk_attention_ref(q, keys, values, bias, **kw)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        k3_err = max(k3_err, diff.max().item())
+        eq = (got == want).float().mean().item()
+        if kw.get("out_dtype", torch.float32) == torch.float32:
+            ok = torch.equal(got, want)
+        else:
+            ok = bool((diff <= 2.0 ** -7 * w.abs()).all())  # one ulp
+        print(f"[k3] {label} {kw.get('contract', 'exact')} "
+              f"out={kw.get('out_dtype', torch.float32)}: bit-equal share "
+              f"{eq:.6f} max |diff| {diff.max().item():.3e}", flush=True)
+        if not ok or not torch.isfinite(got).all():
+            fail(f"K3 {label} {kw} differs from its plain version")
+
+    H, D = 16, 72
+    pix = dict(scale=D ** -0.5, key_bits=32, flush=True, bfloat=0)
+    q = randn(B2, H, 256, D, scale=4.0)
+    kx = randn(B2, H, 256, D, scale=4.0)
+    vx = randn(B2, H, 256, D)
+    kc = randn(B2, H, CAPTION_TOKENS, D, scale=4.0)
+    vc = randn(B2, H, CAPTION_TOKENS, D)
+    bias, _ = caption_bias(B2, CAPTION_TOKENS, dev)
+    for contract in ("exact", "serving"):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            kw = dict(pix, contract=contract, out_dtype=out_dtype)
+            check_k3("self top-k two_step k=77", q, kx, vx, None, k=77,
+                     pred_mode="two_step_leading_ones", **kw)
+            check_k3("self dense", q, kx, vx, None, k=256, approx=False, **kw)
+            check_k3("cross dense S=120 bias", q, kc, vc, bias, k=120,
+                     approx=False, **kw)
+    del q, kx, vx, kc, vc
+    # the domain at a small batch: ex_pred, true-score top-k, cross top-k
+    # with the bias, N = S = 512, N = 300 with S = 77, bf16 input, a
+    # subnormal block under flush
+    b, h = 2, 4
+
+    def small(n, s, dtype=torch.float32):
+        return (randn(b, h, n, D, scale=4.0, dtype=dtype),
+                randn(b, h, s, D, scale=4.0, dtype=dtype),
+                randn(b, h, s, D, dtype=dtype))
+
+    sq, sk, sv = small(256, 256)
+    cq, ck, cv = small(256, CAPTION_TOKENS)
+    cbias, _ = caption_bias(b, CAPTION_TOKENS, dev)
+    lq, lk, lv = small(512, 512)
+    rq, rk, rv = small(300, 77)
+    rbias, _ = caption_bias(b, 77, dev)
+    hq, hk, hv = small(256, 256, torch.bfloat16)
+    fq, fk, fv = small(256, 256)
+    fk[0, 1, 9, 32:64] = 1e-39
+    fv[1, 2, 64:96, 5] = 2e-39
+    fq[1, 0, 4, :32] = -3e-40
+    cases = [
+        ("ex_pred k=77", (sq, sk, sv, None),
+         dict(k=77, pred_mode="ex_pred")),
+        ("approx off k=77", (sq, sk, sv, None), dict(k=77, approx=False)),
+        ("cross top-k two_step k=20 bias", (cq, ck, cv, cbias),
+         dict(k=20, pred_mode="two_step_leading_ones")),
+        ("cross top-k ex_pred k=20 bias", (cq, ck, cv, cbias),
+         dict(k=20, pred_mode="ex_pred")),
+        ("N=S=512 two_step k=77", (lq, lk, lv, None),
+         dict(k=77, pred_mode="two_step_leading_ones")),
+        ("N=S=512 dense", (lq, lk, lv, None), dict(k=512)),
+        ("N=300 S=77 two_step k=20 bias", (rq, rk, rv, rbias),
+         dict(k=20, pred_mode="two_step_leading_ones")),
+        ("bf16 input two_step k=77", (hq, hk, hv, None),
+         dict(k=77, pred_mode="two_step_leading_ones")),
+        ("bf16 input bfloat=16 ex_pred k=77 key_bits=8", (hq, hk, hv, None),
+         dict(k=77, pred_mode="ex_pred", bfloat=16, key_bits=8)),
+        ("subnormal blocks under flush two_step k=77", (fq, fk, fv, None),
+         dict(k=77, pred_mode="two_step_leading_ones")),
+    ]
+    for label, args, extra in cases:
+        for contract in ("exact", "serving"):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                kw = dict(pix, contract=contract, out_dtype=out_dtype)
+                kw.update(extra)
+                check_k3(label, *args, **kw)
+    del cases, sq, sk, sv, cq, ck, cv, lq, lk, lv, rq, rk, rv, hq, hk, hv
+    del fq, fk, fv
+
+    # ---- 6./7. the slices
+    main_launches = {n: 0 for n in wrappers}
+    main_sites = {n: collections.Counter() for n in wrappers}
+    path_launches = {}
+    tiers = {}
+
+    def run_path(name, contract, steps, per_fwd, units, fn):
+        """Drive one tier of a slice with every count set to 0 just before
+        and read just after."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+            w.sites.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n, w in wrappers.items():
+            main_sites[n].update(w.sites)
+            main_launches[n] += counts[n]
+        path_launches[f"{name} {contract}"] = counts
+        for n, c in counts.items():
+            if c != per_fwd.get(n, 0) * steps:
+                fail(f"{name} {contract}: {n} launched {c} times, expected "
+                     f"{per_fwd.get(n, 0)} per forward x {steps}")
+        tiers[f"{name} {contract}"] = dict(
+            imgs_per_s=units / dt, step_ms=1e3 * dt / steps,
+            max_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"[slice] {name} {contract}: {units} images x {steps} steps "
+              f"in {dt:.2f} s = {units / dt:.4f} imgs/s, step "
+              f"{1e3 * dt / steps:.2f} ms, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+              f"{counts}", flush=True)
+        for n, w in wrappers.items():
+            for site, c in w.sites.items():
+                desc = site if n == K1 else site[:-1] + (dict(site[-1]),)
+                print(f"[slice] {name} {contract}: {n} at {desc}: {c}")
+        return out
+
+    # 6. DiT-XL/2
     cfg = DiT_models["DiT-XL/2"](input_size=32)
     t0 = time.perf_counter()
     model = init_dit(cfg, torch.Generator().manual_seed(0), dev,
@@ -170,166 +397,184 @@ def main():
                                        serve_dtype=torch.bfloat16)
     print(f"[slice] DiT-XL/2 random weights, prequantized bf16, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    base_q = DiTQuantConfig(mx_specs=specs, mx_quant=True, top_k=True, k=154,
-                            ex_pred=True, exclude_blocks=(27,),
-                            topk_key_bits=8, activation_dtype="bfloat16")
-    per_fwd = {"mx_quantize": 4 * cfg.depth + 2,
-               "fused_topk_attention_qkv": cfg.depth}
-    wrappers = {"mx_quantize": mx_quantize,
-                "fused_topk_attention_qkv": fused_topk_attention_qkv}
-    main_launches = {n: 0 for n in wrappers}
-    main_sites = {n: collections.Counter() for n in wrappers}
-    tiers = {}
-    labels = list(range(IMAGES))
+    dit_q = DiTQuantConfig(mx_specs=specs, mx_quant=True, top_k=True, k=154,
+                           ex_pred=True, exclude_blocks=(27,),
+                           topk_key_bits=8, activation_dtype="bfloat16")
+    labels = list(range(DIT_IMAGES))
     for contract in ("serving", "exact"):
-        qc = dataclasses.replace(base_q, contract=contract)
+        qc = dataclasses.replace(dit_q, contract=contract)
         sample_dit(model, qc, labels, gen, num_steps=2, device=dev)  # warm
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.launches = 0
-            w.sites.clear()
-        t0 = time.perf_counter()
-        lat = sample_dit(model, qc, labels, gen, num_steps=STEPS, device=dev)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = {n: w.launches for n, w in wrappers.items()}
-        for n, w in wrappers.items():
-            main_sites[n].update(w.sites)
-        for n, c in counts.items():
-            main_launches[n] += c
-            if c != per_fwd[n] * STEPS:
-                fail(f"{contract}: {n} launched {c} times, expected "
-                     f"{per_fwd[n]} per forward x {STEPS}")
-        if lat.shape != (IMAGES, 4, 32, 32) or not torch.isfinite(lat).all():
-            fail(f"{contract}: latents not finite / wrong shape")
-        tiers[contract] = dict(imgs_per_s=IMAGES / dt,
-                               step_ms=1e3 * dt / STEPS,
-                               max_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        print(f"[slice] {contract}: {IMAGES} images x {STEPS} steps in "
-              f"{dt:.2f} s = {IMAGES / dt:.4f} imgs/s, step {1e3 * dt / STEPS:.2f} ms, "
-              f"max_memory_allocated {tiers[contract]['max_mem_gb']:.2f} GB, "
-              f"launches {counts}, latent std {lat.float().std().item():.4g}",
-              flush=True)
-        for (shape, dtype, *_), c in mx_quantize.sites.items():
-            print(f"[slice] {contract}: K1 at {tuple(shape)} {dtype}: {c}")
-        for (_, _, _, kw), c in fused_topk_attention_qkv.sites.items():
-            kw = dict(kw)
-            print(f"[slice] {contract}: K2 {kw['contract']} k={kw['k']}: {c}")
+        lat = run_path("DiT-XL/2", contract, DIT_STEPS,
+                       {K1: 4 * cfg.depth + 2, K2: cfg.depth}, DIT_IMAGES,
+                       lambda: sample_dit(model, qc, labels, gen,
+                                          num_steps=DIT_STEPS, device=dev))
+        if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
+                not torch.isfinite(lat).all():
+            fail(f"DiT {contract}: latents not finite / wrong shape")
+        print(f"[slice] DiT-XL/2 {contract}: latent std "
+              f"{lat.float().std().item():.4g}")
 
-    # ---- 6. where the time goes: serving steps under the profiler (two:
-    # respacing to a single step leaves no posterior variance table)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    qc = dataclasses.replace(base_q, contract="serving")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sample_dit(model, qc, labels, gen, num_steps=2, device=dev)
+    def profile(label, fn, steps):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / 2
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 2e3
-    print(f"[profile] per serving step (profiled): wall {wall_ms:.1f} ms, "
-          f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%})")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
-        print(f"[profile] {e.self_device_time_total / 2e3:9.2f} ms/step "
-              f"{e.count // 2:6d}x  {e.key[:90]}")
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kern) / (1e3 * steps)
+        print(f"[profile] {label} per serving step (profiled): wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+              f"({busy_ms / wall_ms:.1%})")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
+            print(f"[profile] {label} {e.self_device_time_total / (1e3 * steps):9.2f}"
+                  f" ms/step {e.count // steps:6d}x  {e.key[:90]}")
+
+    # 8. where the time goes (two steps: respacing to a single DDPM step
+    # leaves no posterior variance table)
+    qc = dataclasses.replace(dit_q, contract="serving")
+    profile("DiT-XL/2", lambda: sample_dit(model, qc, labels, gen,
+                                           num_steps=2, device=dev), 2)
     del model
 
-    # ---- 7. kernel times at every call site the slice launched, weighted
-    # by its launches there
-    def mix(sites):
-        total = sum(st["launches"] for st in sites)
-        out = {key: sum(st[key] * st["launches"] for st in sites) / total
-               for key in ("ms", "plain_ms", "bound_ms")}
-        # the term that sets most of the launch-weighted bound
-        share = collections.Counter()
-        for st in sites:
-            share[st["bound_by"]] += st["bound_ms"] * st["launches"]
-        out["bound_by"] = share.most_common(1)[0][0]
-        return out
+    # 7. PixArt-alpha 256^2
+    pcfg = PixArtConfig()  # 256^2: latent 32, 28 layers, 16 heads of 72
+    t0 = time.perf_counter()
+    pmodel = init_pixart(pcfg, torch.Generator().manual_seed(0), dev)
+    print(f"[slice] PixArt-alpha 256^2 random weights in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    embeds = randn(PIXART_PROMPTS, CAPTION_TOKENS, pcfg.caption_channels)
+    _, mask = caption_bias(PIXART_PROMPTS, CAPTION_TOKENS, dev)
+    null = randn(1, CAPTION_TOKENS, pcfg.caption_channels)
+    pix_q = PixArtQuantConfig(
+        mx_specs=pixart_mx_specs(), mx_quant=True, self_top_k=True, self_k=77,
+        ex_pred=True, pred_mode="two_step_leading_ones", exclude_blocks=(27,))
+    noise = randn(PIXART_PROMPTS, 4, 32, 32)
+    pix_per_fwd = {K1: 10 * pcfg.num_layers, K3: 2 * pcfg.num_layers}
+    for contract in ("serving", "exact"):
+        qc = dataclasses.replace(pix_q, contract=contract)
 
+        def sample(steps, qc=qc):
+            return sample_pixart(pmodel, qc, embeds, mask, null,
+                                 num_steps=steps, latents=noise, device=dev)
+
+        sample(1)  # warm
+        lat = run_path("PixArt-alpha-256", contract, PIXART_STEPS,
+                       pix_per_fwd, PIXART_PROMPTS,
+                       lambda: sample(PIXART_STEPS))
+        if lat.shape != (PIXART_PROMPTS, 4, 32, 32) or \
+                not torch.isfinite(lat).all():
+            fail(f"PixArt {contract}: latents not finite / wrong shape")
+        print(f"[slice] PixArt-alpha-256 {contract}: latent std "
+              f"{lat.float().std().item():.4g}")
+    qc = dataclasses.replace(pix_q, contract="serving")
+    profile("PixArt-alpha-256", lambda: sample_pixart(
+        pmodel, qc, embeds, mask, null, num_steps=2, latents=noise,
+        device=dev), 2)
+    del pmodel, embeds, null
+
+    # ---- 9. kernel times at every call site the slices launched, weighted
+    # by their launches there
     k1_sites = []
-    for (shape, dtype, *args), n in sorted(main_sites["mx_quantize"].items(),
+    for (shape, dtype, *args), n in sorted(main_sites[K1].items(),
                                            key=lambda kv: -kv[1]):
-        x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
-        run = lambda: mx_quantize(x, *args)  # noqa: E731
-        plain = lambda: mx_quantize_ref(x, *args)  # noqa: E731
-        (ms, queued), (pms, _) = time_ms(run, 200), time_ms(plain, 10)
+        x = randn(*shape, dtype=dtype)
+        (ms, queued), (pms, _) = (time_ms(lambda: mx_quantize(x, *args), 200),
+                                  time_ms(lambda: mx_quantize_ref(x, *args),
+                                          10))
         out_dtype = args[3]
         nbytes = x.numel() * (x.element_size() + out_dtype.itemsize)
         bound = 1e3 * nbytes / HBM_BYTES_PER_S  # ~20 instr/elem: far below
         k1_sites.append(dict(shape=list(shape), dtype=str(dtype),
-                             format=args[0], bfloat=args[5], launches=n,
-                             ms=ms, plain_ms=pms, bound_ms=bound,
+                             format=args[0], flush=args[4], bfloat=args[5],
+                             launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
                              bound_by="bytes", queued=queued))
-        print(f"[time] K1 {tuple(shape)} {dtype} x{n}: {ms:.4f} ms "
-              f"(plain {pms:.3f} ms, bound {bound:.4f} ms by bytes; "
-              f"launches queued ahead: {queued})", flush=True)
-    k1 = mix(k1_sites)
+        print(f"[time] K1 {tuple(shape)} {dtype} flush={args[4]} x{n}: "
+              f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound:.4f} ms by "
+              f"bytes; launches queued ahead: {queued})", flush=True)
 
     k2_sites = []
-    for (shape, dtype, heads, kw), n in sorted(
-            main_sites["fused_topk_attention_qkv"].items(),
-            key=lambda kv: -kv[1]):
+    for (shape, dtype, heads, kw), n in sorted(main_sites[K2].items(),
+                                               key=lambda kv: -kv[1]):
         kw = dict(kw)
-        x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
-        run = lambda: fused_topk_attention_qkv(x, heads, **kw)  # noqa: E731
-        plain = lambda: fused_topk_attention_qkv_ref(x, heads, **kw)  # noqa
-        (ms, queued), (pms, _) = time_ms(run, 20), time_ms(plain, 2,
-                                                           warmup=1)
+        x = randn(*shape, dtype=dtype)
+        (ms, queued), (pms, _) = (
+            time_ms(lambda: ta.fused_topk_attention_qkv(x, heads, **kw), 20),
+            time_ms(lambda: ta.fused_topk_attention_qkv_ref(x, heads, **kw),
+                    2, warmup=1))
         b, t, f = shape
-        d = f // (3 * heads)
-        rows = b * heads * t
-        k = min(kw["k"], t)
-        nbytes = x.numel() * x.element_size() + \
-            b * t * heads * d * kw["out_dtype"].itemsize
-        # tensor-core work: true scores and (top-k only) predictor over
-        # every (query, key) pair at the true head dim, PV over the k keys
-        # each row selects (the serving tier may keep more on ties, which
-        # stays below the bytes term even at all t keys); CUDA-core work:
-        # a compare per key per bisection pass, plus max, exp, sum and
-        # divide of the softmax, for every (query, key) pair.  Memory
-        # traffic and both kinds of operations can overlap, so the bound is
-        # the largest of the three times
-        pairs = rows * t
-        topk = kw["k"] < t
-        t_tc = 1e3 * (2 * pairs * d * (2 if topk else 1)
-                      + 2 * rows * k * d) / BF16_OPS_PER_S
-        t_cc = 1e3 * pairs * ((kw["key_bits"] if topk else 0) + 4) \
-            / F32_INSTR_PER_S
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        bound, by = max((t_bytes, "bytes"), (t_tc, "operations"),
-                        (t_cc, "operations"))
+        bound, by, terms = attention_bound(
+            b * heads, t, t, f // (3 * heads), x.element_size(),
+            kw["out_dtype"].itemsize, kw["k"], kw["key_bits"], kw["k"] < t)
         k2_sites.append(dict(contract=kw["contract"], k=kw["k"],
                              shape=list(shape), dtype=str(dtype), launches=n,
-                             ms=ms, plain_ms=pms, bound_ms=bound,
-                             bound_by=by, queued=queued))
+                             ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                             queued=queued))
         print(f"[time] K2 {kw['contract']} k={kw['k']} x{n}: {ms:.4f} ms "
-              f"(plain {pms:.2f} ms, bound {bound:.4f} ms by {by}: bytes "
-              f"{t_bytes:.4f}, tensor-core ops {t_tc:.4f}, CUDA-core ops "
-              f"{t_cc:.4f}; launches queued ahead: {queued})", flush=True)
-    k2 = mix(k2_sites)
+              f"(plain {pms:.2f} ms, bound {bound:.4f} ms by {by}: "
+              f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
+              f"queued ahead: {queued})", flush=True)
 
+    k3_sites = []
+    for (qs, ks, dtype, bshape, kw), n in sorted(main_sites[K3].items(),
+                                                 key=lambda kv: -kv[1]):
+        kw = dict(kw)
+        q = randn(*qs, scale=4.0, dtype=dtype)
+        kx = randn(*ks, scale=4.0, dtype=dtype)
+        vx = randn(*ks, dtype=dtype)
+        bias = None if bshape is None else caption_bias(
+            bshape[0], bshape[3], dev)[0]
+        (ms, queued), (pms, _) = (
+            time_ms(lambda: ta.fused_topk_attention(q, kx, vx, bias, **kw),
+                    20),
+            time_ms(lambda: ta.fused_topk_attention_ref(q, kx, vx, bias,
+                                                        **kw), 2, warmup=1))
+        b, h, nq, d = qs
+        s = ks[2]
+        topk = kw["k"] < s
+        bound, by, terms = attention_bound(
+            b * h, nq, s, d, q.element_size(), kw["out_dtype"].itemsize,
+            kw["k"], kw["key_bits"], topk,
+            extra_bytes=0 if bias is None else b * s * 4)
+        k3_sites.append(dict(contract=kw["contract"], k=kw["k"],
+                             q_shape=list(qs), k_shape=list(ks),
+                             dtype=str(dtype), bias=bshape is not None,
+                             pred_mode=kw["pred_mode"] if topk and
+                             kw["approx"] else None,
+                             launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
+                             bound_by=by, queued=queued))
+        print(f"[time] K3 {kw['contract']} k={kw['k']} S={s} "
+              f"approx={kw['approx']} bias={bshape is not None} x{n}: "
+              f"{ms:.4f} ms (plain {pms:.2f} ms, bound {bound:.4f} ms by "
+              f"{by}: { {t: round(v, 4) for t, v in terms.items()} }; "
+              f"launches queued ahead: {queued})", flush=True)
+
+    k1, k2, k3 = mix(k1_sites), mix(k2_sites), mix(k3_sites)
     kernels = [
-        dict(name="mx_quantize", route="triton",
+        dict(name=K1, route="triton",
              source="mx_quantization_tpu_torch/ops/kernels/quantize.py",
              replaces="mx_quantization_tpu/ops/kernels/quantize.py:119",
-             launches=main_launches["mx_quantize"], max_abs_err=k1_err,
+             launches=main_launches[K1], max_abs_err=k1_err,
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None, sites=k1_sites),
-        dict(name="fused_topk_attention_qkv", route="cuda",
+        dict(name=K2, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu",
              replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:1054",
-             launches=main_launches["fused_topk_attention_qkv"],
-             max_abs_err=k2_err, ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
-             library_ms=None, sites=k2_sites),
+             launches=main_launches[K2], max_abs_err=k2_err, ms=k2["ms"],
+             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=None, sites=k2_sites),
+        dict(name=K3, route="cuda",
+             source="mx_quantization_tpu_torch/csrc/topk_attention_split.cu",
+             replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:805",
+             launches=main_launches[K3], max_abs_err=k3_err, ms=k3["ms"],
+             plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=None, sites=k3_sites),
     ]
-    print(json.dumps({"tiers": tiers}))
+    print(json.dumps({"tiers": tiers, "launches_by_path": path_launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

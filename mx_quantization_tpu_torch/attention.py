@@ -1,21 +1,27 @@
-"""Quantized attention with approximated top-k pruning: the fused qkv entry
-(port of the JAX package's ``attention.py`` ``TopKAttentionConfig``,
+"""Quantized attention with approximated top-k pruning (port of the JAX
+package's ``attention.py``: ``TopKAttentionConfig``, ``topk_attention``,
 ``fused_qkv_eligible`` and ``fused_qkv_topk_attention``; forward only).
 
 The flow is the reference's
-  true_scores = MX(q) @ MX(k)^T * scale,  pred = approx(q) @ approx(k)^T,
+  true_scores = MX(q) @ MX(k)^T * scale (+ bias),
+  pred = approx(q) @ approx(k)^T (+ bias),
   attn = softmax over the top-k of pred,  out = MX(attn) @ MX(v),
-all inside kernel K2 (``ops/kernels/topk_attention.py``).
+all inside one kernel: K2 (``fused_qkv_topk_attention``, self-attention from
+the fused qkv output) or K3 (``topk_attention``, split q/k/v with an
+optional key bias), both in ``ops/kernels/topk_attention.py``.  Where the
+JAX package would leave its kernels for the XLA emulation path, the port
+raises: the emulation engine is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .formats import format_params
-from .ops.kernels.topk_attention import (MAX_TOKENS,
+from .ops.kernels.topk_attention import (MAX_SPLIT_TOKENS, MAX_TOKENS,
+                                         QKV_PRED_MODES, fused_topk_attention,
                                          fused_topk_attention_qkv)
 
 
@@ -39,21 +45,53 @@ class TopKAttentionConfig(NamedTuple):
     contract: str = "exact"
 
 
-# element formats K2 quantizes (every grid point is exact in bf16)
+# the JAX kernel's predictors (the port's K3 serves ex_pred and
+# two_step_leading_ones and raises for the rest, naming ROADMAP.md)
+_KERNEL_PRED_MODES = ("ex_pred", "two_step_leading_ones", "MXINT4",
+                      "partial_Q", "partial_K", "true_ex", "threshold_ex")
+# element formats the kernels quantize (every grid point is exact in bf16)
 _KERNEL_ELEM_FORMATS = ("int8", "int4", "int2", "fp8_e4m3", "fp8_e5m2",
                         "fp6_e3m2", "fp6_e2m3", "fp4", "fp4_e2m1")
 _KERNEL_BFLOATS = (0, 16, 32)
+# the JAX kernels' longest key sequence (beyond it JAX takes its XLA path)
+_JAX_KERNEL_MAX_KEYS = 4096
+
+
+def _kernel_format_args(mx_specs) -> dict:
+    """mbits/ebits/emax/max_norm kernel knobs for a_elem_format."""
+    ebits, mbits, emax, max_norm, _ = format_params(mx_specs.a_elem_format)
+    return dict(mbits=mbits, ebits=ebits, emax=emax, max_norm=float(max_norm))
+
+
+def _kernel_elemwise_args(mx_specs) -> dict:
+    """The kernels' elementwise-quantization knobs from the specs (bfloat=32
+    is the identity on f32 and reaches the kernels as 0)."""
+    return dict(bfloat=16 if mx_specs.bfloat == 16 else 0,
+                flush=mx_specs.mx_flush_fp32_subnorms)
+
+
+def _kernel_specs_ok(mx_specs, cfg: TopKAttentionConfig) -> bool:
+    return (mx_specs.custom_tpu == "fused" and cfg.sparse_impl == "dense"
+            and mx_specs.a_elem_format in _KERNEL_ELEM_FORMATS
+            and mx_specs.bfloat in _KERNEL_BFLOATS and mx_specs.fp == 0)
+
+
+def _bias_ok(bias, q: torch.Tensor, S: int) -> bool:
+    """A per-key additive mask row (B, 1, 1, S): the PixArt cross-attention
+    contract; the kernels take no other bias shape."""
+    return bias is None or (bias.dim() == 4 and tuple(bias.shape[1:3]) ==
+                            (1, 1) and bias.shape[0] == q.shape[0]
+                            and bias.shape[3] == S)
 
 
 def fused_qkv_eligible(mx_specs, cfg: TopKAttentionConfig, n: int) -> bool:
-    """Can self-attention run on the fused qkv entry?  The port's K2 serves
-    the ex_pred predictor (or none) and N <= MAX_TOKENS."""
-    return (mx_specs is not None and mx_specs.custom_tpu == "fused"
-            and cfg.mx_quant and cfg.sparse_impl == "dense"
+    """Can self-attention run on the fused qkv entry (K2)?  The port's K2
+    serves the ex_pred predictor (or none) and N <= MAX_TOKENS; other
+    self-attention takes the split entry (K3) through ``topk_attention``."""
+    return (mx_specs is not None and cfg.mx_quant
+            and _kernel_specs_ok(mx_specs, cfg)
             and n <= MAX_TOKENS and mx_specs.block_size == 32
-            and mx_specs.a_elem_format in _KERNEL_ELEM_FORMATS
-            and mx_specs.bfloat in _KERNEL_BFLOATS and mx_specs.fp == 0
-            and (cfg.pred_mode == "ex_pred" or not cfg.approx_flag))
+            and (cfg.pred_mode in QKV_PRED_MODES or not cfg.approx_flag))
 
 
 def fused_qkv_topk_attention(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -65,13 +103,80 @@ def fused_qkv_topk_attention(qkv: torch.Tensor, num_heads: int, scale: float,
     branch."""
     if not cfg.top_k:
         cfg = cfg._replace(top_k=True, approx_flag=False, k=int(qkv.shape[1]))
-    ebits, mbits, emax, max_norm, _ = format_params(mx_specs.a_elem_format)
     return fused_topk_attention_qkv(
         qkv, num_heads, k=cfg.k, scale=scale,
         block_size=mx_specs.block_size,
         scale_bits=mx_specs.effective_scale_bits(), approx=cfg.approx_flag,
         pred_mode=cfg.pred_mode, key_bits=cfg.key_bits,
         out_dtype=getattr(torch, cfg.out_dtype), contract=cfg.contract,
-        bfloat=16 if mx_specs.bfloat == 16 else 0,
-        flush=mx_specs.mx_flush_fp32_subnorms,
-        ebits=ebits, mbits=mbits, emax=emax, max_norm=float(max_norm))
+        **_kernel_elemwise_args(mx_specs), **_kernel_format_args(mx_specs))
+
+
+def _split_kernel(q, k, v, bias, scale, mx_specs, cfg) -> torch.Tensor:
+    """The split kernel entry (K3) where the JAX package takes its kernel."""
+    N, S = q.shape[-2], k.shape[-2]
+    if max(N, S) > MAX_SPLIT_TOKENS:
+        raise NotImplementedError(
+            f"N={N}, S={S}: sequences over {MAX_SPLIT_TOKENS} tokens take the "
+            "query-tiled kernel K4, which is not ported yet (ROADMAP.md)")
+    return fused_topk_attention(
+        q, k, v, bias, k=cfg.k, scale=scale, block_size=mx_specs.block_size,
+        scale_bits=mx_specs.effective_scale_bits(), approx=cfg.approx_flag,
+        pred_mode=cfg.pred_mode, key_bits=cfg.key_bits,
+        out_dtype=getattr(torch, cfg.out_dtype), contract=cfg.contract,
+        **_kernel_elemwise_args(mx_specs), **_kernel_format_args(mx_specs))
+
+
+def _emulation_path(cfg: TopKAttentionConfig, why: str):
+    if cfg.contract == "serving":
+        raise ValueError(f"contract='serving' is a fused-kernel tier; this "
+                         f"config falls back to the XLA path ({why})")
+    raise NotImplementedError(
+        f"this attention config needs the emulation path ({why}), which is "
+        "not ported yet (ROADMAP.md)")
+
+
+def _matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full-precision f32 product (TF32 must be off, as it is by default)."""
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, mx_specs, cfg: TopKAttentionConfig,
+                   orthogonal_matrix=None,
+                   bias: Optional[torch.Tensor] = None):
+    """Attention for one (batch, heads, seq, dim) q and (batch, heads,
+    keys, dim) k, v.  bias: optional additive mask (B, 1, 1, S), added to
+    both the true and the predicted scores (the PixArt cross-attention
+    contract).  Returns (out, None), as the JAX package's kernel path
+    does."""
+    if not cfg.mx_quant or mx_specs is None:
+        dt = torch.promote_types(q.dtype, k.dtype)
+        s = _matmul32(q, k.transpose(-1, -2)).to(dt) * scale
+        if bias is not None:
+            s = s + bias
+        p = torch.softmax(s.to(torch.float32), dim=-1).to(s.dtype)
+        return _matmul32(p, v).to(torch.promote_types(p.dtype, v.dtype)), None
+
+    S = int(k.shape[-2])
+    bias_ok = _bias_ok(bias, q, S)
+    if not cfg.top_k:
+        # dense (no-top-k) MX attention, the excluded-block / timestep path:
+        # the kernel with k = S skips the selection
+        if (_kernel_specs_ok(mx_specs, cfg) and bias_ok
+                and S <= _JAX_KERNEL_MAX_KEYS):
+            dcfg = cfg._replace(top_k=True, approx_flag=False, k=S)
+            return _split_kernel(q, k, v, bias, scale, mx_specs, dcfg), None
+        _emulation_path(cfg, "unsupported bias shape, fp != 0, S > 4096, or "
+                        "a non-kernel element format")
+
+    if cfg.approx_flag and cfg.pred_mode == "ELSA":
+        raise NotImplementedError(
+            "ELSA needs kernel K3's ELSA mode, which is not ported yet "
+            "(ROADMAP.md)")
+    if (_kernel_specs_ok(mx_specs, cfg) and bias_ok
+            and S <= _JAX_KERNEL_MAX_KEYS
+            and (cfg.pred_mode in _KERNEL_PRED_MODES or not cfg.approx_flag)):
+        return _split_kernel(q, k, v, bias, scale, mx_specs, cfg), None
+    _emulation_path(cfg, "sparse_impl, bias shape, fp != 0, S > 4096, "
+                    "element format, or a non-kernel predictor")

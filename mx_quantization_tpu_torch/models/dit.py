@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ..attention import (TopKAttentionConfig, fused_qkv_eligible,
-                         fused_qkv_topk_attention)
+                         fused_qkv_topk_attention, topk_attention)
 from ..device import resolve_device
 from ..ops.linear import linear
 from ..specs import MxSpecs
@@ -234,17 +234,22 @@ def _unsupported(qcfg: DiTQuantConfig):
 def dit_attention(attn: nn.Module, x: torch.Tensor, cfg: DiTConfig,
                   specs: Optional[MxSpecs],
                   attn_cfg: TopKAttentionConfig) -> torch.Tensor:
+    """Self-attention: the fused qkv kernel (K2) where it serves the config,
+    else the split q/k/v entry (``topk_attention``: K3, or the unquantized
+    attention), as the JAX package routes."""
     B, N, C = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     mxs = specs if attn_cfg.mx_quant else None
-    if not fused_qkv_eligible(mxs, attn_cfg, N):
-        raise NotImplementedError(
-            "only the fused qkv top-k attention path (kernel K2) is ported; "
-            "unquantized and split q/k/v attention are queued in ROADMAP.md")
     qkv = linear(x, attn.qkv.weight, attn.qkv.bias, mx_specs=mxs)
     if attn_cfg.out_dtype == "bfloat16":
         qkv = qkv.to(torch.bfloat16)  # values already sit on the bf16 grid
-    out = fused_qkv_topk_attention(qkv, H, D ** -0.5, mxs, attn_cfg)
+    if fused_qkv_eligible(mxs, attn_cfg, N):
+        out = fused_qkv_topk_attention(qkv, H, D ** -0.5, mxs, attn_cfg)
+    else:
+        q, k, v = (t.contiguous() for t in
+                   qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+        out, _ = topk_attention(q, k, v, D ** -0.5, mxs, attn_cfg)
+        out = out.transpose(1, 2).reshape(B, N, C)
     return linear(out, attn.proj.weight, attn.proj.bias, mx_specs=mxs)
 
 

@@ -1,32 +1,50 @@
-"""Kernel K2: fused MX top-k self-attention from the fused qkv output.
+"""Kernels K2 and K3: fused MX top-k attention.
 
-The CUDA source is ``csrc/topk_attention_qkv.cu`` (it replaces the TPU
-kernel ``mx_quantization_tpu/ops/kernels/topk_attention.py``
-``fused_topk_attention_qkv``; the source's note says what bounds it and
-how the design answers).  ``fused_topk_attention_qkv`` launches it on a
-CUDA tensor and raises where it cannot; only a CPU tensor takes the plain
-version ``fused_topk_attention_qkv_ref``.
+K2 (``csrc/topk_attention_qkv.cu``) takes self-attention straight from the
+fused qkv output; it replaces the TPU kernel
+``mx_quantization_tpu/ops/kernels/topk_attention.py``
+``fused_topk_attention_qkv``.  K3 (``csrc/topk_attention_split.cu``) takes
+split q (B, H, N, D) and k, v (B, H, S, D), S != N allowed, with an optional
+key bias (B, 1, 1, S); it replaces the short path of ``fused_topk_attention``
+(``_split_impl``).  Each source's note says what bounds it and how the
+design answers.  ``fused_topk_attention_qkv`` and ``fused_topk_attention``
+launch their kernel on a CUDA tensor and raise where they cannot; only a
+CPU tensor takes the plain versions ``fused_topk_attention_qkv_ref`` and
+``fused_topk_attention_ref``.  Each kernel's shape limits are the constants
+below, which the wrappers, the eligibility checks of ``attention.py`` and
+(through ``nvcc -D``) the CUDA sources all read.
 
-Numerics (both the kernel and the plain version), per (batch row, head):
-  * q and k MX-quantized along D (zero-padded to the block), v along N in
-    32-token blocks per column; an f32 input at bfloat=16 is first rounded
-    to bf16 half away from zero
+Numerics (both kernels and their plain versions), per (batch row, head):
+  * q and k MX-quantized along D (zero-padded to the block), v along the
+    keys in 32-key blocks per column; an f32 input at bfloat=16 is first
+    rounded to bf16 half away from zero; flush zeroes a block whose maximum
+    is f32-subnormal
   * true scores: f32 sums of the (bf16-exact) products in d order; the
-    exact tier rounds them half away to bf16 (bfloat=16), then scales
+    exact tier rounds them half away to bf16 (bfloat=16), then scales; K3
+    adds the bias
   * ex_pred scores: sign * 2^(block exponent) operands (zeros count as +,
     padded d masked), summed per block and the blocks in order
+  * two_step_leading_ones scores (K3): the operand sign * e * (2^l1 +
+    2^l2) / 64 per element (e the block exponent, l1 and l2 the leading
+    powers of two of the integer mantissa), cast to bf16, then an f32 sum
+    of the products in d order; the cast rounds, so unlike ex_pred the
+    blocks' sums are not exact and this order is part of the result
+  * K3 adds the bias to the predictor scores too, before the padded keys
+    are masked
   * monotone keys truncated to key_bits; the k-th key by bisection with the
     count of greater keys carried; exact tier: greater keys plus ties
     lowest index first up to k; serving tier: every key >= the k-th; dense
-    (k >= N): every valid key
+    (k >= number of keys): every valid key
   * masked softmax (the softmax sum adds keys s = l + 32 j per lane l in j
-    order, then the 32 lanes by an xor butterfly, as the kernel's warp does)
+    order, then the 32 lanes by an xor butterfly, as the kernels' warps do)
   * exact tier: attn rounded half away to bf16 (bfloat=16) and MX-quantized
     along the keys with the sign-free quantizer; serving: RNE cast to bf16
   * PV summed in key order; the exact tier rounds it half away to bf16;
     the cast to ``out_dtype`` is RNE
-Keys and tokens are zero-padded to a multiple of 32 and masked; the TPU
-kernel pads to 128, which leaves every value unchanged.
+K3 stores its quantized q, k, v and probabilities as bf16, as the TPU
+kernel does, and its plain version casts them the same way.  Keys and
+tokens are zero-padded to a multiple of 32 and masked; the TPU kernels pad
+to 128, which leaves every value unchanged.
 """
 
 from __future__ import annotations
@@ -42,9 +60,18 @@ from ..fastquant import bf16_round_half_away, pow2, quantize_blocks
 from . import build
 
 SOURCE = "topk_attention_qkv.cu"
-# the longest sequence the kernel holds in shared memory: kMaxNj * 32 in
-# the source, whose launcher refuses anything larger
+SPLIT_SOURCE = "topk_attention_split.cu"
+# K2 holds a whole head in shared memory: at most MAX_TOKENS tokens
 MAX_TOKENS = 256
+# K3 stages the keys in chunks: at most MAX_SPLIT_TOKENS queries and keys
+# (the TPU kernel's short path); longer sequences are kernel K4's
+MAX_SPLIT_TOKENS = 512
+MAX_HEAD_DIM = 128
+K2_DEFINES = (("K2_MAX_TOKENS", MAX_TOKENS), ("MAX_HEAD_DIM", MAX_HEAD_DIM))
+K3_DEFINES = (("K3_MAX_TOKENS", MAX_SPLIT_TOKENS),
+              ("MAX_HEAD_DIM", MAX_HEAD_DIM))
+QKV_PRED_MODES = ("ex_pred",)
+SPLIT_PRED_MODES = ("ex_pred", "two_step_leading_ones")
 _NEG = -3.0e38
 
 
@@ -52,11 +79,15 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _check_args(pred_mode, approx, contract, key_bits, block_size):
-    if approx and pred_mode != "ex_pred":
+def _check_args(pred_mode, approx, contract, key_bits, block_size,
+                modes=QKV_PRED_MODES):
+    if approx and pred_mode not in modes:
+        where = ("the split entry (kernel K3) serves it"
+                 if pred_mode in SPLIT_PRED_MODES else
+                 "MXINT4, partial_Q, partial_K, true_ex, threshold_ex and "
+                 "ELSA are K3's remaining modes, not ported yet (ROADMAP.md)")
         raise NotImplementedError(
-            f"pred_mode={pred_mode!r}: the port's qkv kernel serves ex_pred "
-            "only; the other predictors come with kernel K3 (ROADMAP.md)")
+            f"pred_mode={pred_mode!r}: this kernel serves {modes}; {where}")
     if contract not in ("exact", "serving"):
         raise ValueError(f"unknown contract {contract!r}")
     if key_bits not in (8, 16, 32):
@@ -118,6 +149,83 @@ def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _ex_pred_operand(vals: torch.Tensor, e: torch.Tensor,
+                     d_valid: int) -> torch.Tensor:
+    """ex_pred operands +-2^e (zeros count as +) of quantized blocks
+    (..., nb, 32) with exponents (..., nb, 1); padded d masked."""
+    pw = pow2(e.clamp(-126, 127))
+    a = torch.where(vals < 0, -pw, pw)
+    nb = vals.shape[-2]
+    return a * (torch.arange(nb * 32, device=vals.device) < d_valid
+                ).reshape(nb, 32).to(a.dtype)
+
+
+def _blockwise_scores(aq: torch.Tensor, ak: torch.Tensor) -> torch.Tensor:
+    """ex_pred scores from operands (..., N, nb, 32) and (..., S, nb, 32):
+    every per-block sum is exact, the blocks add in order."""
+    blk = torch.einsum("...nkd,...skd->...nsk", aq, ak)
+    out = blk[..., 0]
+    for i in range(1, blk.shape[-1]):
+        out = out + blk[..., i]
+    return out
+
+
+def _two_step_operand(vals: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """two_step_leading_ones operands of quantized blocks (..., nb, 32)
+    (bf16-exact) with exponents (..., nb, 1): sign(m) * e * (2^l1 + 2^l2)
+    / 64, m = vals * 2^-e * 64, in the f32 operations and order of the TPU
+    kernel's ``_two_step_approx``, then the bf16 cast.  e is the block
+    exponent itself, not 2^e: a block with e = 0 contributes nothing."""
+    ec = e.clamp(-127, 127)
+    inv = ((127 - ec) << 23).to(torch.int32).view(torch.float32)  # 0 at 127
+    m = vals * inv * 64.0
+
+    def lead_pow(x):  # 2^floor(log2 x) for x >= 0; zero -> 2^-126
+        lg = torch.where(x == 0, -126, (x.contiguous().view(torch.int32) >> 23)
+                         - 127)
+        return ((lg + 127) << 23).to(torch.int32).view(torch.float32)
+
+    p1 = lead_pow(m.abs())
+    resid = m - p1  # signed: a negative m leaves p2 = 2^-126
+    p2 = lead_pow(torch.where(resid < 0, 0.0, resid))
+    mag = (p1 + p2) / 64.0
+    sgn = torch.where(m < 0, -1.0, torch.where(m == 0, 0.0, 1.0))
+    return (sgn * e.to(torch.float32) * mag).to(torch.bfloat16).to(
+        torch.float32)
+
+
+def _attention_probs(st: torch.Tensor, s_sel, n_keys: int, *, k: int,
+                     key_bits: int, relaxed: bool, bfloat: int, fmt,
+                     scale_bits: int, flush: bool) -> torch.Tensor:
+    """Scaled true scores st (..., Kp) and predictor scores s_sel (None:
+    select by st) -> the attention probabilities that meet v, (..., Kp)."""
+    Kp = st.shape[-1]
+    valid = torch.arange(Kp, device=st.device) < n_keys
+    if k >= n_keys:
+        sel = valid.expand(st.shape)
+    else:
+        s_sel = torch.where(valid, st if s_sel is None else s_sel, _NEG)
+        keys = _mono_keys(s_sel, key_bits)
+        kth, n_gt = _kth_keys(keys, k, key_bits)
+        if relaxed:
+            sel = keys >= kth
+        else:
+            eq = keys == kth
+            rank = torch.cumsum(eq.to(torch.int64), dim=-1)
+            sel = (keys > kth) | (eq & (rank <= k - n_gt))
+
+    masked = torch.where(sel, st, _NEG)
+    ex = torch.exp(masked - masked.amax(-1, keepdim=True))
+    attn = ex / _lane_sum(ex)
+    if relaxed:
+        return attn.to(torch.bfloat16).to(torch.float32)
+    if bfloat == 16:
+        attn = bf16_round_half_away(attn)
+    attn, _ = quantize_blocks(attn.reshape(*st.shape[:-1], Kp // 32, 32), fmt,
+                              scale_bits, flush, nonneg=True)
+    return attn.reshape(st.shape)
+
+
 def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
                                  k: int, scale: float, block_size: int = 32,
                                  mbits: int = 8, scale_bits: int = 8,
@@ -156,44 +264,13 @@ def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
         st = bf16_round_half_away(st)
     st = st * scale
 
-    valid = torch.arange(Np, device=qkv.device) < N
-    if k >= N:
-        sel = valid.expand(B, H, Np, Np)
-    else:
-        if approx:
-            # ex_pred operands +-2^e (zeros count as +), padded d masked;
-            # every per-block sum is exact, the blocks add in order
-            pw = pow2(e.clamp(-126, 127))
-            a = torch.where(qk < 0, -pw, pw)
-            a = a * (torch.arange(Dp, device=qkv.device) < D
-                     ).reshape(nb, 32).to(a.dtype)
-            blk = torch.einsum("bhnkd,bhskd->bhnsk", a[0], a[1])
-            s_sel = blk[..., 0]
-            for i in range(1, nb):
-                s_sel = s_sel + blk[..., i]
-        else:
-            s_sel = st
-        s_sel = torch.where(valid, s_sel, _NEG)
-        keys = _mono_keys(s_sel, key_bits)
-        kth, n_gt = _kth_keys(keys, k, key_bits)
-        if relaxed:
-            sel = keys >= kth
-        else:
-            eq = keys == kth
-            rank = torch.cumsum(eq.to(torch.int64), dim=-1)
-            sel = (keys > kth) | (eq & (rank <= k - n_gt))
-
-    masked = torch.where(sel, st, _NEG)
-    ex = torch.exp(masked - masked.amax(-1, keepdim=True))
-    attn = ex / _lane_sum(ex)
-    if relaxed:
-        attn = attn.to(torch.bfloat16).to(torch.float32)
-    else:
-        if bfloat == 16:
-            attn = bf16_round_half_away(attn)
-        attn, _ = quantize_blocks(attn.reshape(B, H, Np, Np // 32, 32), fmt,
-                                  scale_bits, flush, nonneg=True)
-        attn = attn.reshape(B, H, Np, Np)
+    s_sel = None
+    if approx and k < N:
+        a = _ex_pred_operand(qk, e, D)
+        s_sel = _blockwise_scores(a[0], a[1])
+    attn = _attention_probs(st, s_sel, N, k=k, key_bits=key_bits,
+                            relaxed=relaxed, bfloat=bfloat, fmt=fmt,
+                            scale_bits=scale_bits, flush=flush)
 
     out = _dot_in_order(attn, v)
     if bfloat == 16 and not relaxed:
@@ -202,12 +279,96 @@ def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
     return out.to(out_dtype)
 
 
+def _split_side(x: torch.Tensor, n_pad: int, Dp: int, fmt, scale_bits: int,
+                flush: bool, bfloat: int):
+    """(B, H, n, D) -> quantized blocks along D (B, H, n_pad, nb, 32),
+    stored as bf16, and their predictor exponents (B, H, n_pad, nb, 1)."""
+    x32 = x.to(torch.float32)
+    if bfloat == 16 and x.dtype != torch.bfloat16:
+        x32 = bf16_round_half_away(x32)
+    x32 = torch.nn.functional.pad(x32, (0, Dp - x.shape[-1],
+                                        0, n_pad - x.shape[-2]))
+    vals, e = quantize_blocks(x32.reshape(*x32.shape[:-1], Dp // 32, 32), fmt,
+                              scale_bits, flush)
+    return vals.to(torch.bfloat16).to(torch.float32), e
+
+
+def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
+                             v: torch.Tensor, bias=None, *, k: int,
+                             scale: float, block_size: int = 32,
+                             mbits: int = 8, scale_bits: int = 8,
+                             approx: bool = True,
+                             pred_mode: str = "ex_pred",
+                             key_bits: int = 32, out_dtype=torch.float32,
+                             bfloat: int = 0, flush: bool = False,
+                             ebits: int = 0, emax: int = 0,
+                             max_norm: float = 0.0,
+                             contract: str = "exact") -> torch.Tensor:
+    """Plain PyTorch version of K3, vectorized over (batch, head, query):
+    q (B, H, N, D), k and v (B, H, S, D), bias (B, 1, 1, S) or None ->
+    (B, H, N, D)."""
+    _check_args(pred_mode, approx, contract, key_bits, block_size,
+                SPLIT_PRED_MODES)
+    relaxed = contract == "serving"
+    fmt = FormatParams(ebits, mbits, emax, max_norm, 0.0)
+    B, H, N, D = q.shape
+    S = k_.shape[2]
+    Sp = _round_up(S, 32)
+    Dp = _round_up(max(D, 8), 32)
+
+    qv, qe = _split_side(q, N, Dp, fmt, scale_bits, flush, bfloat)
+    kv, ke = _split_side(k_, Sp, Dp, fmt, scale_bits, flush, bfloat)
+    v32 = v.to(torch.float32)
+    if bfloat == 16 and v.dtype != torch.bfloat16:
+        v32 = bf16_round_half_away(v32)
+    vt = torch.nn.functional.pad(v32, (0, 0, 0, Sp - S)).transpose(-1, -2)
+    vq, _ = quantize_blocks(vt.reshape(B, H, D, Sp // 32, 32), fmt,
+                            scale_bits, flush)
+    vq = vq.to(torch.bfloat16).to(torch.float32).reshape(B, H, D, Sp
+                                                         ).transpose(-1, -2)
+
+    flat = (B, H, -1, Dp)
+    st = _dot_in_order(qv.reshape(flat)[..., :D],
+                       kv.reshape(flat)[..., :D].transpose(-1, -2))
+    if bfloat == 16 and not relaxed:
+        st = bf16_round_half_away(st)
+    st = st * scale
+    brow = None
+    if bias is not None:
+        if tuple(bias.shape) != (B, 1, 1, S):
+            raise ValueError(f"bias must be (B, 1, 1, S) = {(B, 1, 1, S)}, "
+                             f"got {tuple(bias.shape)}")
+        brow = torch.nn.functional.pad(bias.to(torch.float32), (0, Sp - S))
+        st = st + brow
+
+    s_sel = None
+    if approx and k < S:
+        if pred_mode == "two_step_leading_ones":
+            aq = _two_step_operand(qv, qe).reshape(flat)[..., :D]
+            ak = _two_step_operand(kv, ke).reshape(flat)[..., :D]
+            s_sel = _dot_in_order(aq, ak.transpose(-1, -2))
+        else:
+            s_sel = _blockwise_scores(_ex_pred_operand(qv, qe, D),
+                                      _ex_pred_operand(kv, ke, D))
+        if brow is not None:
+            s_sel = s_sel + brow
+    attn = _attention_probs(st, s_sel, S, k=k, key_bits=key_bits,
+                            relaxed=relaxed, bfloat=bfloat, fmt=fmt,
+                            scale_bits=scale_bits, flush=flush)
+    attn = attn.to(torch.bfloat16).to(torch.float32)
+
+    out = _dot_in_order(attn, vq)
+    if bfloat == 16 and not relaxed:
+        out = bf16_round_half_away(out)
+    return out.to(out_dtype)
+
+
 # ----------------------------------------------------------------------
 # kernel wrapper
 # ----------------------------------------------------------------------
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+    lib = build.load(SOURCE, K2_DEFINES)
     lib.topk_attention_qkv_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.topk_attention_qkv_smem_bytes.restype = ctypes.c_longlong
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
@@ -253,11 +414,14 @@ def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
     B, N, F = qkv.shape
     H = num_heads
     D = F // (3 * H)
-    lib = _library()
-    if lib.topk_attention_qkv_smem_bytes(N, D) == 0:
+    if N > MAX_TOKENS or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"K2 holds a head in shared memory and takes N <= {MAX_TOKENS}, "
-            f"D <= 128 (got N={N}, D={D}); longer sequences need kernel K4")
+            f"D <= {MAX_HEAD_DIM} (got N={N}, D={D}); the split entry "
+            "(kernel K3) takes longer sequences")
+    lib = _library()
+    if lib.topk_attention_qkv_smem_bytes(N, D) == 0:
+        raise ValueError(f"K2 cannot take N={N}, D={D}")
     out = torch.empty(B, N, H * D, dtype=out_dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -280,3 +444,104 @@ def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
 # keyword arguments)
 fused_topk_attention_qkv.launches = 0
 fused_topk_attention_qkv.sites = collections.Counter()
+
+
+# ----------------------------------------------------------------------
+# K3 wrapper
+# ----------------------------------------------------------------------
+@functools.cache
+def _split_library() -> ctypes.CDLL:
+    lib = build.load(SPLIT_SOURCE, K3_DEFINES)
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib.topk_attention_split_smem_bytes.argtypes = [i] * 6
+    lib.topk_attention_split_smem_bytes.restype = ctypes.c_longlong
+    lib.topk_attention_split.argtypes = [p, p, p, p, p] + [i] * 8 + [
+        f] + [i] * 9 + [f, i, p]
+    lib.topk_attention_split.restype = ctypes.c_int
+    return lib
+
+
+def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
+                         bias=None, *, k: int, scale: float,
+                         block_size: int = 32, mbits: int = 8,
+                         scale_bits: int = 8, approx: bool = True,
+                         pred_mode: str = "ex_pred", key_bits: int = 32,
+                         out_dtype=torch.float32, bfloat: int = 0,
+                         flush: bool = False, ebits: int = 0, emax: int = 0,
+                         max_norm: float = 0.0,
+                         contract: str = "exact") -> torch.Tensor:
+    """q (B, H, N, D), k and v (B, H, S, D), optional key bias (B, 1, 1, S)
+    -> (B, H, N, D) attention output.
+
+    K3 on CUDA tensors; the plain version on CPU tensors."""
+    kw = dict(k=k, scale=scale, block_size=block_size, mbits=mbits,
+              scale_bits=scale_bits, approx=approx, pred_mode=pred_mode,
+              key_bits=key_bits, out_dtype=out_dtype, bfloat=bfloat,
+              flush=flush, ebits=ebits, emax=emax, max_norm=max_norm,
+              contract=contract)
+    if q.device.type == "cpu":
+        return fused_topk_attention_ref(q, k_, v, bias, **kw)
+    _check_args(pred_mode, approx, contract, key_bits, block_size,
+                SPLIT_PRED_MODES)
+    tensors = [q, k_, v] + ([] if bias is None else [bias])
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("K3 runs on CUDA tensors of one device (or on CPU "
+                         f"tensors), not {[str(t.device) for t in tensors]}")
+    if q.dim() != 4 or k_.dim() != 4 or v.shape != k_.shape or \
+            q.shape[:2] != k_.shape[:2] or q.shape[3] != k_.shape[3]:
+        raise ValueError("q must be (B, H, N, D) and k, v (B, H, S, D), got "
+                         f"{tuple(q.shape)}, {tuple(k_.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k_.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("K3 takes float32 or bfloat16 q, k, v of one dtype, "
+                        f"not {q.dtype}, {k_.dtype}, {v.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K3 writes float32 or bfloat16, not {out_dtype}")
+    if not (q.is_contiguous() and k_.is_contiguous() and v.is_contiguous()):
+        raise ValueError("K3 takes contiguous q, k and v")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    B, H, N, D = q.shape
+    S = k_.shape[2]
+    if N > MAX_SPLIT_TOKENS or S > MAX_SPLIT_TOKENS or D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"K3 takes N, S <= {MAX_SPLIT_TOKENS} and D <= {MAX_HEAD_DIM} "
+            f"(got N={N}, S={S}, D={D}); longer sequences are the query-tiled "
+            "kernel K4's, not ported yet (ROADMAP.md)")
+    brow = None
+    if bias is not None:
+        if tuple(bias.shape) != (B, 1, 1, S):
+            raise ValueError(f"bias must be (B, 1, 1, S) = {(B, 1, 1, S)}, "
+                             f"got {tuple(bias.shape)}")
+        brow = bias.reshape(B, S).to(torch.float32).contiguous()
+    two_step = int(pred_mode == "two_step_leading_ones")
+    lib = _split_library()
+    if lib.topk_attention_split_smem_bytes(N, S, D, int(k), int(approx),
+                                           two_step) == 0:
+        raise ValueError(f"K3 cannot take N={N}, S={S}, D={D}")
+    out = torch.empty(B, H, N, D, dtype=out_dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.topk_attention_split(
+            q.data_ptr(), k_.data_ptr(), v.data_ptr(),
+            None if brow is None else brow.data_ptr(), out.data_ptr(),
+            B, H, N, S, D, int(q.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), int(k), float(scale),
+            int(approx), two_step, int(key_bits),
+            int(contract == "serving"), int(bfloat == 16), int(flush),
+            int(ebits), int(mbits), int(emax), float(max_norm),
+            int(scale_bits), stream)
+    if err:
+        raise RuntimeError(f"K3 launch failed with CUDA error {err}")
+    fused_topk_attention.launches += 1
+    fused_topk_attention.sites[
+        (tuple(q.shape), tuple(k_.shape), q.dtype,
+         None if bias is None else tuple(bias.shape), tuple(kw.items()))] += 1
+    return out
+
+
+# launches, and launches per call site: (q shape, k shape, dtype, bias
+# shape or None, keyword arguments)
+fused_topk_attention.launches = 0
+fused_topk_attention.sites = collections.Counter()

@@ -1,10 +1,12 @@
-"""DiT weights into the port: from the JAX package's parameter tree, and
-from the public DiT checkpoint layout (port of the DiT part of the JAX
-package's ``utils/checkpoint.py``).
+"""DiT and PixArt-alpha weights into the port: from the JAX package's
+parameter trees, and from the public checkpoint layouts (the DiT release,
+diffusers' PixArtTransformer2DModel); port of the DiT and PixArt parts of
+the JAX package's ``utils/checkpoint.py``.
 
-The port's ``DiT`` module names its parameters after the JAX tree
-(``blocks.<i>.attn.qkv.weight``, ...), so both loaders produce a state dict
-in those names and hand it to ``DiT.load_state_dict``.
+The port's ``DiT`` and ``PixArt`` modules name their parameters after the
+JAX trees (``blocks.<i>.attn.qkv.weight``, ``blocks.<i>.attn1.to_q.weight``,
+...), so the loaders produce state dicts in those names and hand them to
+``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..models.dit import DiT, DiTConfig
+from ..models.pixart import PixArt, PixArtConfig
 
 
 def _tensor(a) -> torch.Tensor:
@@ -22,11 +26,9 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
 
 
-def dit_params_from_jax(np_tree: dict, cfg: DiTConfig,
-                        device="cuda") -> DiT:
-    """The JAX package's DiT parameter tree (numpy arrays; the block
-    parameters stacked along a leading depth axis) -> a ``DiT`` module."""
-    model = DiT(cfg, device=device)
+def _fill_from_jax(model: nn.Module, np_tree: dict) -> nn.Module:
+    """Load a JAX parameter tree (numpy arrays; the block parameters
+    stacked along a leading depth axis) into ``model`` by name."""
     sd: Dict[str, torch.Tensor] = {}
     for name in model.state_dict():
         parts = name.split(".")
@@ -42,6 +44,19 @@ def dit_params_from_jax(np_tree: dict, cfg: DiTConfig,
             sd[name] = _tensor(node)
     model.load_state_dict(sd)
     return model
+
+
+def dit_params_from_jax(np_tree: dict, cfg: DiTConfig,
+                        device="cuda") -> DiT:
+    """The JAX package's DiT parameter tree -> a ``DiT`` module."""
+    return _fill_from_jax(DiT(cfg, device=device), np_tree)
+
+
+def pixart_params_from_jax(np_tree: dict, cfg: PixArtConfig,
+                           device="cuda") -> PixArt:
+    """The JAX package's PixArt parameter tree -> a ``PixArt`` module (the
+    position table is the module's own, computed from ``cfg``)."""
+    return _fill_from_jax(PixArt(cfg, device=device), np_tree)
 
 
 def load_dit_checkpoint(path: str, depth: int = 28) -> Dict[str, torch.Tensor]:
@@ -73,4 +88,50 @@ def load_dit_checkpoint(path: str, depth: int = 28) -> Dict[str, torch.Tensor]:
             for leaf in ("weight", "bias"):
                 out[f"blocks.{i}.{ours}.{leaf}"] = \
                     sd[f"blocks.{i}.{theirs}.{leaf}"]
+    return {k: v.detach().to(torch.float32) for k, v in out.items()}
+
+
+def load_pixart_checkpoint(path: str, num_layers: int = 28
+                           ) -> Dict[str, torch.Tensor]:
+    """Read a diffusers PixArtTransformer2DModel state dict (the
+    PixArt-alpha 256/512 safetensors or a torch file) and return a state
+    dict in the port's names, for ``PixArt.load_state_dict``."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+        sd = load_file(path)
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        sd = ckpt.get("state_dict", ckpt)
+    if "adaln_single.emb.resolution_embedder.linear_1.weight" in sd:
+        raise NotImplementedError(
+            "this checkpoint has micro-conditioning embedders (the 1024^2 "
+            "model), which the port does not have yet (ROADMAP.md)")
+    names = {
+        "pos_embed.proj": "pos_embed.proj",
+        "adaln_single.emb_mlp0": "adaln_single.emb.timestep_embedder.linear_1",
+        "adaln_single.emb_mlp2": "adaln_single.emb.timestep_embedder.linear_2",
+        "adaln_single.linear": "adaln_single.linear",
+        "caption_projection.linear_1": "caption_projection.linear_1",
+        "caption_projection.linear_2": "caption_projection.linear_2",
+        "proj_out": "proj_out",
+    }
+    for i in range(num_layers):
+        for attn in ("attn1", "attn2"):
+            for lin in ("to_q", "to_k", "to_v"):
+                names[f"blocks.{i}.{attn}.{lin}"] = \
+                    f"transformer_blocks.{i}.{attn}.{lin}"
+            names[f"blocks.{i}.{attn}.to_out"] = \
+                f"transformer_blocks.{i}.{attn}.to_out.0"
+        names[f"blocks.{i}.ff.fc1"] = f"transformer_blocks.{i}.ff.net.0.proj"
+        names[f"blocks.{i}.ff.fc2"] = f"transformer_blocks.{i}.ff.net.2"
+    out = {"scale_shift_table": sd["scale_shift_table"]}
+    for i in range(num_layers):
+        out[f"blocks.{i}.scale_shift_table"] = \
+            sd[f"transformer_blocks.{i}.scale_shift_table"]
+    for ours, theirs in names.items():
+        w = sd[f"{theirs}.weight"]
+        out[f"{ours}.weight"] = w
+        # a linear without a bias adds zero
+        out[f"{ours}.bias"] = sd.get(f"{theirs}.bias",
+                                     torch.zeros(w.shape[0]))
     return {k: v.detach().to(torch.float32) for k, v in out.items()}

@@ -53,19 +53,13 @@ def _probe(x, H):
     return p.reshape(B, N, F)
 
 
-def assert_matches_jax(port, jax_fn, x, H, mbits=8, contract="exact",
-                       out_bf16=False):
-    """port, jax_fn: (B, N, 3*H*D) float32 array -> (B, N, H*D) float32
-    array.  The criterion of the module docstring."""
-    B, N, F = x.shape
-    D = F // (3 * H)
-    got = np.asarray(port(x), np.float32).reshape(B, N, H, D)
-    want = np.asarray(jax_fn(x), np.float32).reshape(B, N, H, D)
-    pg = np.asarray(port(_probe(x, H)), np.float32).reshape(B, N, H, D)
-    pw = np.asarray(jax_fn(_probe(x, H)), np.float32).reshape(B, N, H, D)
-    pg, pw = pg[..., :N], pw[..., :N]
+def check_rows(got, want, pg, pw, vmax, mbits=8, contract="exact",
+               out_bf16=False):
+    """The criterion of the module docstring on (cells, N, D) outputs,
+    (cells, N, S) probed probabilities and each cell's max |v| (cells,)."""
+    N, S = pg.shape[-2:]
     tol = dict(rtol=2.0 ** -8, atol=2e-5) if out_bf16 else TOL
-    flip = (pg != pw).any(-1)  # (B, N, H) query rows
+    flip = (pg != pw).any(-1)  # (cells, N) query rows
     close = np.isclose(got, want, **tol).all(-1)
     assert (close | flip).all(), \
         f"{(~close & ~flip).sum()} rows outside tolerance, same probabilities"
@@ -78,18 +72,35 @@ def assert_matches_jax(port, jax_fn, x, H, mbits=8, contract="exact",
     if contract == "serving":
         step = 2.0 ** -7 * hi
     else:
-        Np = -(-N // 32) * 32
-        blk = np.pad(hi, ((0, 0), (0, Np - N))).reshape(len(hi), -1, 32)
-        step = np.repeat(blk.max(-1), 32, axis=-1)[:, :N] * 2.0 ** -(mbits - 2)
+        Sp = -(-S // 32) * 32
+        blk = np.pad(hi, ((0, 0), (0, Sp - S))).reshape(len(hi), -1, 32)
+        step = np.repeat(blk.max(-1), 32, axis=-1)[:, :S] * 2.0 ** -(mbits - 2)
     dp = np.abs(pg - pw)[flip]
     assert ((dp > 0).sum(-1) <= 2).all()
     assert (dp <= step).all()
-    v = x.reshape(B, N, 3, H, D)[:, :, 2]  # (B, N, H, D)
-    vmax = np.abs(v).max(axis=(1, 3))[:, None, :].repeat(N, 1)[flip]
-    vmax = vmax * (1 + 2.0 ** -(mbits - 2))
+    vm = np.repeat(vmax[:, None], N, axis=1)[flip] * (1 + 2.0 ** -(mbits - 2))
     err = np.abs(got - want)[flip].max(-1)
-    assert (err <= dp.sum(-1) * vmax + 2e-5 + 2.0 ** -8 *
+    assert (err <= dp.sum(-1) * vm + 2e-5 + 2.0 ** -8 *
             np.abs(want[flip]).max(-1)).all()
+
+
+def assert_matches_jax(port, jax_fn, x, H, mbits=8, contract="exact",
+                       out_bf16=False):
+    """port, jax_fn: (B, N, 3*H*D) float32 array -> (B, N, H*D) float32
+    array.  The criterion of the module docstring."""
+    B, N, F = x.shape
+    D = F // (3 * H)
+
+    def cells(a, width):  # (B, N, H*width) -> (B*H, N, width)
+        return np.asarray(a, np.float32).reshape(B, N, H, -1)[..., :width
+                                                             ].transpose(
+            0, 2, 1, 3).reshape(B * H, N, width)
+
+    got, want = cells(port(x), D), cells(jax_fn(x), D)
+    pg, pw = cells(port(_probe(x, H)), N), cells(jax_fn(_probe(x, H)), N)
+    v = x.reshape(B, N, 3, H, D)[:, :, 2]  # (B, N, H, D)
+    vmax = np.abs(v).max(axis=(1, 3)).reshape(B * H)
+    check_rows(got, want, pg, pw, vmax, mbits, contract, out_bf16)
 
 
 SPECS = dict(w_elem_format="int8", a_elem_format="int8", scale_bits=8,

@@ -1,5 +1,6 @@
 """The port's hand-written kernels against their plain PyTorch versions on
-the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA).
+the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA;
+K3: split q/k/v top-k attention, CUDA).
 
 Marked ``gpu``; each test skips where no CUDA device exists.  On a machine
 with one:  python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
@@ -15,7 +16,8 @@ from mx_quantization_tpu_torch.models.dit import (DiTConfig, DiTQuantConfig,
 from mx_quantization_tpu_torch.ops.kernels.quantize import (mx_quantize,
                                                             mx_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
-    fused_topk_attention_qkv, fused_topk_attention_qkv_ref)
+    fused_topk_attention, fused_topk_attention_qkv,
+    fused_topk_attention_qkv_ref, fused_topk_attention_ref)
 from mx_quantization_tpu_torch.ops.linear import mm_f32
 from mx_quantization_tpu_torch.workloads.dit import dit_mx_specs, sample_dit
 
@@ -96,6 +98,83 @@ def test_k2_counts_launches(cuda):
     before = fused_topk_attention_qkv.launches
     fused_topk_attention_qkv(x, 2, k=8, scale=0.125)
     assert fused_topk_attention_qkv.launches == before + 1
+
+
+_K3_CASES = [  # (B, H, N, S, D, k, key_bits, pred_mode, approx)
+    (2, 2, 64, 64, 72, 9, 32, "two_step_leading_ones", True),
+    (2, 2, 64, 40, 72, 9, 32, "two_step_leading_ones", True),  # S % 32
+    (2, 2, 64, 40, 72, 9, 8, "ex_pred", True),
+    (2, 2, 64, 40, 72, 9, 16, "ex_pred", False),   # true-score top-k
+    (2, 2, 64, 120, 72, 120, 32, "ex_pred", True),  # dense, S = 120
+    (2, 2, 300, 77, 72, 20, 32, "two_step_leading_ones", True),
+    (1, 2, 512, 512, 72, 77, 32, "two_step_leading_ones", True),
+    (1, 2, 512, 512, 128, 77, 8, "ex_pred", True),
+    (1, 2, 256, 256, 72, 256, 32, "two_step_leading_ones", True),  # dense
+]
+
+
+def _k3_inputs(B, H, N, S, D, dtype, seed, with_bias):
+    q = (4 * _normal((B, H, N, D), seed)).to(dtype)
+    k = (4 * _normal((B, H, S, D), seed + 1)).to(dtype)
+    v = _normal((B, H, S, D), seed + 2, dtype)
+    bias = None
+    if with_bias:  # caption masks of varying valid length
+        valid = torch.arange(S)[None] < torch.tensor(
+            [max(1, S - 7 * (i + 1)) for i in range(B)])[:, None]
+        bias = ((1.0 - valid.float()) * -10000.0)[:, None, None, :]
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("case", _K3_CASES)
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("in_dtype,out_dtype",
+                         [(torch.float32, torch.float32),
+                          (torch.bfloat16, torch.bfloat16)])
+def test_k3_matches_plain(cuda, case, contract, with_bias, in_dtype,
+                          out_dtype):
+    B, H, N, S, D, k, kb, pred_mode, approx = case
+    q, kk, v, bias = (None if t is None else t.to(cuda) for t in _k3_inputs(
+        B, H, N, S, D, in_dtype, 11, with_bias))
+    kw = dict(k=k, scale=D ** -0.5, key_bits=kb, pred_mode=pred_mode,
+              approx=approx, contract=contract, out_dtype=out_dtype,
+              flush=True)
+    got = fused_topk_attention(q, kk, v, bias, **kw)
+    want = fused_topk_attention_ref(q, kk, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.isfinite(got).all()
+    assert torch.equal(got, want)  # same arithmetic in the same order
+
+
+@pytest.mark.parametrize("bfloat", [0, 16])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8_e4m3", "fp6_e3m2"])
+def test_k3_formats_and_subnormal_flush(cuda, bfloat, fmt):
+    B, H, N, S, D = 2, 2, 64, 96, 72
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    q, k, v, bias = _k3_inputs(B, H, N, S, D, torch.float32, 21, True)
+    k[0, 0, 5, :32] = 1e-39   # a block of subnormals: flushed to zero
+    v[1, 1, 32:64, 3] = 3e-39
+    q[0, 1, 7, 32:64] = -2e-40
+    kw = dict(k=17, scale=D ** -0.5, key_bits=32, bfloat=bfloat, flush=True,
+              ebits=ebits, mbits=mbits, emax=emax, max_norm=max_norm,
+              pred_mode="two_step_leading_ones")
+    args = [t.to(cuda) for t in (q, k, v, bias)]
+    got = fused_topk_attention(*args, **kw)
+    want = fused_topk_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k3_counts_launches_and_refuses_k4_shapes(cuda):
+    q, k, v, _ = _k3_inputs(1, 2, 64, 64, 72, torch.float32, 31, False)
+    before = fused_topk_attention.launches
+    fused_topk_attention(q.to(cuda), k.to(cuda), v.to(cuda), k=8,
+                         scale=0.125)
+    assert fused_topk_attention.launches == before + 1
+    long = torch.zeros(1, 1, 600, 72, device=cuda)
+    with pytest.raises(NotImplementedError, match="K4"):
+        fused_topk_attention(long, long, long, k=8, scale=0.125)
+    assert fused_topk_attention.launches == before + 1
 
 
 def test_bf16_product_has_f32_output(cuda):

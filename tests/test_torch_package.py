@@ -13,9 +13,13 @@ import torch
 
 import mx_quantization_tpu_torch as port
 from mx_quantization_tpu_torch.models.dit import DiT, DiTConfig, init_dit
+from mx_quantization_tpu_torch.models.pixart import (PixArt, PixArtConfig,
+                                                     PixArtQuantConfig,
+                                                     init_pixart)
 from mx_quantization_tpu_torch.ops.linear import linear
 from mx_quantization_tpu_torch.specs import finalize_mx_specs
 from mx_quantization_tpu_torch.workloads import dit as dit_workload
+from mx_quantization_tpu_torch.workloads import pixart as pixart_workload
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_DIR = Path(port.__file__).parent
@@ -75,6 +79,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                                 torch.Generator(), num_steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dit_workload.main(["--model", "DiT-debug", "--image-size", "32"])
+
+
+def test_pixart_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    cfg = PixArtConfig(num_attention_heads=2, attention_head_dim=72,
+                       num_layers=1, sample_size=4, caption_channels=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PixArt(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_pixart(cfg, torch.Generator())
+    model = init_pixart(cfg, torch.Generator(), device="cpu")
+    embeds, mask = torch.zeros(1, 8, 32), torch.ones(1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pixart_workload.sample_pixart(model, PixArtQuantConfig(), embeds,
+                                      mask, embeds, torch.Generator(),
+                                      num_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pixart_workload.main(["--num-layers", "1", "--image-size", "32"])
 
 
 def test_only_the_fused_engine_is_ported():
