@@ -6,8 +6,8 @@
 Needs one CUDA GPU (Hopper: the CUDA kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
-  2. build: K2 and K3 from csrc/, one nvcc each, started together (K1
-     compiles through Triton's JIT)
+  2. build: K2 and K7 (one source), K3 and K5 from csrc/, one nvcc each,
+     started together (K1 and K6 compile through Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
      shapes (bf16/f32 in, bfloat 0/16) and at the PixArt sites (f32 in,
      flush, bfloat 0/32)
@@ -17,20 +17,26 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      three PixArt-alpha 256^2 sites at 200 rows (self top-k two_step k=77,
      self dense, cross dense S=120 with a caption-mask bias), both
      contracts, f32 and bf16 output; then the domain cases at a small batch
-  6. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
+  6. K5 (LN + modulate + MX quantize), K6 (GELU + MX quantize) and K7
+     (split-emission qkv top-k attention) against their plain versions, bit
+     for bit: K5 at the DiT site and its domain cases, K6 at the DiT fc2
+     site, PixArt's fc2 site and in erf form, K7 at the DiT site in both
+     tiers, top-k and dense, and K7 against K2 on the same values
+  7. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
      prequantized to bf16), 32 images with CFG (64 rows), 100 DDPM steps,
-     serving tier then exact tier
-  7. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
+     serving tier then exact tier; then the same with the fused opt-ins
+     (fuse_ln_modulate, fuse_gelu, qkv_layout="split_t": K5, K6, K7)
+  8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
      tier
-     In 6 and 7 every launch count is set to 0 just before a run and read
+     In 7 and 8 every launch count is set to 0 just before a run and read
      just after: each kernel of the path must have launched its per-forward
      count times the steps, and no other kernel at all; each kernel's
      launches per call site (shape, dtype, arguments) are kept
-  8. two serving steps of each slice under torch.profiler: device busy
+  9. two serving steps of each path under torch.profiler: device busy
      share, top kernels
-  9. kernel times with CUDA events at every call site the slices launched
+ 10. kernel times with CUDA events at every call site the paths launched
      (calls queued behind a GPU sleep, so that the host's launch time
      stays out), beside their bounds and plain versions, weighted by those
      launches
@@ -152,9 +158,11 @@ def main():
                                                          PixArtQuantConfig,
                                                          init_pixart)
     from mx_quantization_tpu_torch.ops.kernels import build
+    from mx_quantization_tpu_torch.ops.kernels import \
+        ln_modulate_quantize as lnq
     from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
     from mx_quantization_tpu_torch.ops.kernels.quantize import (
-        mx_quantize, mx_quantize_ref)
+        gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
     from mx_quantization_tpu_torch.utils.prequantize import prequantize_weights
     from mx_quantization_tpu_torch.workloads.dit import (dit_mx_specs,
                                                          sample_dit)
@@ -162,8 +170,11 @@ def main():
                                                             sample_pixart)
     K1, K2, K3 = "mx_quantize", "fused_topk_attention_qkv", \
         "fused_topk_attention"
+    K5, K6, K7 = "ln_modulate_quantize", "gelu_quantize", \
+        "fused_topk_attention_qkv_t"
     wrappers = {K1: mx_quantize, K2: ta.fused_topk_attention_qkv,
-                K3: ta.fused_topk_attention}
+                K3: ta.fused_topk_attention, K5: lnq.ln_modulate_quantize,
+                K6: gelu_quantize, K7: ta.fused_topk_attention_qkv_t}
 
     # ---- 1. device
     smi = subprocess.run(
@@ -185,7 +196,9 @@ def main():
 
     # ---- 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ((ta.SOURCE, ta.K2_DEFINES), (ta.SPLIT_SOURCE, ta.K3_DEFINES))
+    sources = ((ta.SOURCE, ta.K2_DEFINES),
+               (ta.SPLIT_SOURCE, ta.K3_DEFINES),
+               (lnq.SOURCE, lnq.DEFINES))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda sd: build.build(*sd), sources))
     print(f"[build] {[lib.name for lib in libs]} in "
@@ -347,6 +360,73 @@ def main():
     del cases, sq, sk, sv, cq, ck, cv, lq, lk, lv, rq, rk, rv, hq, hk, hv
     del fq, fk, fv
 
+    # ---- 6. K5, K6 and K7 against their plain versions, bit for bit
+    errs = {K5: 0.0, K6: 0.0, K7: 0.0}
+
+    def check_equal(name, label, got, want):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs().max().item()
+        errs[name] = max(errs[name], diff)
+        print(f"[{name}] {label}: max |diff| {diff:.3e}", flush=True)
+        if not torch.equal(got, want):
+            fail(f"{name} {label} differs from its plain version")
+
+    def check_k5(label, x, shift, scale, **kw):
+        check_equal(K5, label, lnq.ln_modulate_quantize(x, shift, scale, **kw),
+                    lnq.ln_modulate_quantize_ref(x, shift, scale, **kw))
+
+    B, C = 2 * DIT_IMAGES, 1152
+    check_k5("DiT site (64, 256, 1152) bf16 int8 bfloat=16",
+             randn(B, 256, C, scale=3.0, dtype=torch.bfloat16),
+             randn(B, C, scale=0.3, dtype=torch.bfloat16),
+             randn(B, C, scale=0.3, dtype=torch.bfloat16), bfloat=16)
+    for c in (C, 96):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(4, 256, c, scale=3.0, dtype=dtype)
+            sh, sc = randn(4, c, scale=0.3), randn(4, c, scale=0.3)
+            sc[0, :32], sh[0, :32] = -1.0, 1e-39  # a subnormal block
+            for fmt in ("int8", "fp8_e4m3"):
+                for bfloat in (0, 16):
+                    for flush in (False, True):
+                        check_k5(f"C={c} {dtype} {fmt} bfloat={bfloat} "
+                                 f"flush={flush}", x, sh, sc, elem_format=fmt,
+                                 bfloat=bfloat, flush=flush)
+
+    def check_k6(label, x, **kw):
+        check_equal(K6, label, gelu_quantize(x, **kw),
+                    gelu_quantize_ref(x, **kw))
+
+    h = randn(B, 256, 4608, scale=2.0, dtype=torch.bfloat16)
+    check_k6("DiT fc2 site (64, 256, 4608) bf16 bfloat=16", h, bfloat=16)
+    check_k6("DiT fc2 site erf form", h, bfloat=16, approximate=False)
+    check_k6("DiT fc2 site fp8_e4m3", h, bfloat=16, elem_format="fp8_e4m3")
+    h = randn(B2, 256, 4608, scale=2.0)
+    h[0, 0, :32] = 1e-39
+    check_k6("PixArt fc2 site (200, 256, 4608) f32 flush bfloat=32", h,
+             flush=True, bfloat=32)
+    check_k6("PixArt fc2 site erf form", h, flush=True, bfloat=32,
+             approximate=False)
+    del h
+
+    H, D, Dp = 16, 72, 96
+    qkv = randn(B, 256, 3 * H * D, dtype=torch.bfloat16)
+    qk = torch.nn.functional.pad(qkv[..., :2 * H * D].reshape(
+        B, 256, 2, H, D), (0, Dp - D))
+    qk_t = qk.permute(2, 3, 4, 0, 1).reshape(2 * H * Dp, B, 256).contiguous()
+    v = qkv[..., 2 * H * D:].contiguous()
+    del qk
+    for contract in ("serving", "exact"):
+        for k in (154, 256):
+            kw = dict(k=k, scale=D ** -0.5, key_bits=8, bfloat=16,
+                      contract=contract, out_dtype=torch.bfloat16)
+            got = ta.fused_topk_attention_qkv_t(qk_t, v, H, n_valid=256, **kw)
+            check_equal(K7, f"DiT site {contract} k={k}", got,
+                        ta.fused_topk_attention_qkv_t_ref(qk_t, v, H,
+                                                          n_valid=256, **kw))
+            check_equal(K7, f"DiT site {contract} k={k} against K2", got,
+                        ta.fused_topk_attention_qkv(qkv, H, **kw))
+    del qkv, qk_t, v, got
+
     # ---- 6./7. the slices
     main_launches = {n: 0 for n in wrappers}
     main_sites = {n: collections.Counter() for n in wrappers}
@@ -384,11 +464,12 @@ def main():
               f"{counts}", flush=True)
         for n, w in wrappers.items():
             for site, c in w.sites.items():
-                desc = site if n == K1 else site[:-1] + (dict(site[-1]),)
+                desc = site[:-1] + (dict(site[-1]),) \
+                    if n in (K2, K3, K7) else site
                 print(f"[slice] {name} {contract}: {n} at {desc}: {c}")
         return out
 
-    # 6. DiT-XL/2
+    # 7. DiT-XL/2
     cfg = DiT_models["DiT-XL/2"](input_size=32)
     t0 = time.perf_counter()
     model = init_dit(cfg, torch.Generator().manual_seed(0), dev,
@@ -434,14 +515,42 @@ def main():
             print(f"[profile] {label} {e.self_device_time_total / (1e3 * steps):9.2f}"
                   f" ms/step {e.count // steps:6d}x  {e.key[:90]}")
 
-    # 8. where the time goes (two steps: respacing to a single DDPM step
+    # 9. where the time goes (two steps: respacing to a single DDPM step
     # leaves no posterior variance table)
     qc = dataclasses.replace(dit_q, contract="serving")
     profile("DiT-XL/2", lambda: sample_dit(model, qc, labels, gen,
                                            num_steps=2, device=dev), 2)
+
+    # 7. DiT-XL/2 with the fused opt-ins: the same model and weights; per
+    # forward, serving: K5 before qkv and fc1 of every block and the final
+    # linear, K6 in every block, K7 in every block (block 27 dense), K1 in
+    # front of proj and the final adaLN linear; exact: K5 and K6 do not
+    # apply (bfloat=16), K7 in every block, K1 as the default path
+    fused_q = dataclasses.replace(dit_q, fuse_ln_modulate=True,
+                                  fuse_gelu=True, qkv_layout="split_t")
+    depth = cfg.depth
+    fused_per_fwd = {
+        "serving": {K1: depth + 1, K5: 2 * depth + 1, K6: depth, K7: depth},
+        "exact": {K1: 4 * depth + 2, K7: depth}}
+    for contract in ("serving", "exact"):
+        qc = dataclasses.replace(fused_q, contract=contract)
+        sample_dit(model, qc, labels, gen, num_steps=2, device=dev)  # warm
+        lat = run_path("DiT-XL/2 fused opt-ins", contract, DIT_STEPS,
+                       fused_per_fwd[contract], DIT_IMAGES,
+                       lambda: sample_dit(model, qc, labels, gen,
+                                          num_steps=DIT_STEPS, device=dev))
+        if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
+                not torch.isfinite(lat).all():
+            fail(f"DiT fused opt-ins {contract}: latents not finite / wrong "
+                 "shape")
+        print(f"[slice] DiT-XL/2 fused opt-ins {contract}: latent std "
+              f"{lat.float().std().item():.4g}")
+    qc = dataclasses.replace(fused_q, contract="serving")
+    profile("DiT-XL/2 fused opt-ins", lambda: sample_dit(
+        model, qc, labels, gen, num_steps=2, device=dev), 2)
     del model
 
-    # 7. PixArt-alpha 256^2
+    # 8. PixArt-alpha 256^2
     pcfg = PixArtConfig()  # 256^2: latent 32, 28 layers, 16 heads of 72
     t0 = time.perf_counter()
     pmodel = init_pixart(pcfg, torch.Generator().manual_seed(0), dev)
@@ -477,7 +586,7 @@ def main():
         device=dev), 2)
     del pmodel, embeds, null
 
-    # ---- 9. kernel times at every call site the slices launched, weighted
+    # ---- 10. kernel times at every call site the paths launched, weighted
     # by their launches there
     k1_sites = []
     for (shape, dtype, *args), n in sorted(main_sites[K1].items(),
@@ -553,7 +662,77 @@ def main():
               f"{by}: { {t: round(v, 4) for t, v in terms.items()} }; "
               f"launches queued ahead: {queued})", flush=True)
 
+    k5_sites = []
+    for (shape, dtype, *args), n in sorted(main_sites[K5].items(),
+                                           key=lambda kv: -kv[1]):
+        x = randn(*shape, scale=3.0, dtype=dtype)
+        sh = randn(shape[0], shape[2], scale=0.3, dtype=dtype)
+        sc = randn(shape[0], shape[2], scale=0.3, dtype=dtype)
+        (ms, queued), (pms, _) = (
+            time_ms(lambda: lnq.ln_modulate_quantize(x, sh, sc, *args), 200),
+            time_ms(lambda: lnq.ln_modulate_quantize_ref(x, sh, sc, *args),
+                    10))
+        out_dtype = args[4]
+        nbytes = x.numel() * (x.element_size() + out_dtype.itemsize) \
+            + 2 * sh.numel() * sh.element_size()
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S  # ~40 ops/elem: far below
+        k5_sites.append(dict(shape=list(shape), dtype=str(dtype),
+                             format=args[0], flush=args[5], bfloat=args[6],
+                             launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
+                             bound_by="bytes", queued=queued))
+        print(f"[time] K5 {tuple(shape)} {dtype} x{n}: {ms:.4f} ms (plain "
+              f"{pms:.3f} ms, bound {bound:.4f} ms by bytes; launches queued "
+              f"ahead: {queued})", flush=True)
+
+    k6_sites = []
+    for (shape, dtype, *args), n in sorted(main_sites[K6].items(),
+                                           key=lambda kv: -kv[1]):
+        x = randn(*shape, scale=2.0, dtype=dtype)
+        (ms, queued), (pms, _) = (
+            time_ms(lambda: gelu_quantize(x, *args), 200),
+            time_ms(lambda: gelu_quantize_ref(x, *args), 10))
+        nbytes = x.numel() * (x.element_size() + args[3].itemsize)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        k6_sites.append(dict(shape=list(shape), dtype=str(dtype),
+                             format=args[0], flush=args[4], bfloat=args[5],
+                             approximate=args[6], launches=n, ms=ms,
+                             plain_ms=pms, bound_ms=bound, bound_by="bytes",
+                             queued=queued))
+        print(f"[time] K6 {tuple(shape)} {dtype} x{n}: {ms:.4f} ms (plain "
+              f"{pms:.3f} ms, bound {bound:.4f} ms by bytes; launches queued "
+              f"ahead: {queued})", flush=True)
+
+    k7_sites = []
+    for (qs, vs, dtype, heads, kw), n in sorted(main_sites[K7].items(),
+                                                key=lambda kv: -kv[1]):
+        kw = dict(kw)
+        fh, b, t = qs
+        d, dp = vs[2] // heads, fh // (2 * heads)
+        qk_t = randn(2 * heads, dp, b, t, dtype=dtype)
+        qk_t[:, d:] = 0  # the projection's zero padding
+        qk_t = qk_t.reshape(qs)
+        v = randn(*vs, dtype=dtype)
+        (ms, queued), (pms, _) = (
+            time_ms(lambda: ta.fused_topk_attention_qkv_t(qk_t, v, heads,
+                                                          **kw), 20),
+            time_ms(lambda: ta.fused_topk_attention_qkv_t_ref(qk_t, v, heads,
+                                                              **kw),
+                    2, warmup=1))
+        bound, by, terms = attention_bound(
+            b * heads, t, t, d, qk_t.element_size(), kw["out_dtype"].itemsize,
+            kw["k"], kw["key_bits"], kw["k"] < t)
+        k7_sites.append(dict(contract=kw["contract"], k=kw["k"],
+                             qk_t_shape=list(qs), v_shape=list(vs),
+                             dtype=str(dtype), launches=n, ms=ms,
+                             plain_ms=pms, bound_ms=bound, bound_by=by,
+                             queued=queued))
+        print(f"[time] K7 {kw['contract']} k={kw['k']} x{n}: {ms:.4f} ms "
+              f"(plain {pms:.2f} ms, bound {bound:.4f} ms by {by}: "
+              f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
+              f"queued ahead: {queued})", flush=True)
+
     k1, k2, k3 = mix(k1_sites), mix(k2_sites), mix(k3_sites)
+    k5, k6, k7 = mix(k5_sites), mix(k6_sites), mix(k7_sites)
     kernels = [
         dict(name=K1, route="triton",
              source="mx_quantization_tpu_torch/ops/kernels/quantize.py",
@@ -573,6 +752,24 @@ def main():
              launches=main_launches[K3], max_abs_err=k3_err, ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None, sites=k3_sites),
+        dict(name=K5, route="cuda",
+             source="mx_quantization_tpu_torch/csrc/ln_modulate_quantize.cu",
+             replaces="mx_quantization_tpu/ops/kernels/quantize.py:205",
+             launches=main_launches[K5], max_abs_err=errs[K5], ms=k5["ms"],
+             plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+             bound_by=k5["bound_by"], library_ms=None, sites=k5_sites),
+        dict(name=K6, route="triton",
+             source="mx_quantization_tpu_torch/ops/kernels/quantize.py",
+             replaces="mx_quantization_tpu/ops/kernels/quantize.py:289",
+             launches=main_launches[K6], max_abs_err=errs[K6], ms=k6["ms"],
+             plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
+             bound_by=k6["bound_by"], library_ms=None, sites=k6_sites),
+        dict(name=K7, route="cuda",
+             source="mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu",
+             replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:1130",
+             launches=main_launches[K7], max_abs_err=errs[K7], ms=k7["ms"],
+             plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
+             bound_by=k7["bound_by"], library_ms=None, sites=k7_sites),
     ]
     print(json.dumps({"tiers": tiers, "launches_by_path": path_launches}))
     print(smi)

@@ -1,9 +1,10 @@
 """PyTorch / CUDA port of ``mx_quantization_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package beside this one is the reference; this package keeps its
-module layout and names.  Slice 1 covers the DiT-XL/2 MXINT8 top-k sampling
-path: the MX quantize kernel (Triton) in front of every quantized linear and
-the fused qkv top-k attention kernel (CUDA C++).  Entry points run on the card
+module layout and names.  It covers DiT-XL/2 MXINT8 top-k sampling (with
+its fused opt-ins) and PixArt-alpha 256^2 sampling, each TPU kernel on their
+paths a hand-written Triton or CUDA C++ kernel (ROADMAP.md lists the
+slices).  Entry points run on the card
 unless the caller passes ``device="cpu"``; on the CPU every kernel wrapper
 uses its plain PyTorch version.
 """

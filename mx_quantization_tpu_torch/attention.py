@@ -20,8 +20,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from .formats import format_params
+from .ops.fastquant import fused_eligible
 from .ops.kernels.topk_attention import (MAX_SPLIT_TOKENS, MAX_TOKENS,
-                                         QKV_PRED_MODES, fused_topk_attention,
+                                         QKV_GATE_TOKENS, QKV_PRED_MODES,
+                                         fused_topk_attention,
                                          fused_topk_attention_qkv)
 
 
@@ -84,14 +86,30 @@ def _bias_ok(bias, q: torch.Tensor, S: int) -> bool:
                             and bias.shape[3] == S)
 
 
-def fused_qkv_eligible(mx_specs, cfg: TopKAttentionConfig, n: int) -> bool:
+def fused_qkv_eligible(mx_specs, cfg: TopKAttentionConfig, n: int,
+                       max_tokens: int = MAX_TOKENS,
+                       pred_modes=QKV_PRED_MODES) -> bool:
     """Can self-attention run on the fused qkv entry (K2)?  The port's K2
     serves the ex_pred predictor (or none) and N <= MAX_TOKENS; other
-    self-attention takes the split entry (K3) through ``topk_attention``."""
+    self-attention takes the split entry (K3) through ``topk_attention``.
+    ``max_tokens`` and ``pred_modes`` widen the gate for split emission."""
     return (mx_specs is not None and cfg.mx_quant
             and _kernel_specs_ok(mx_specs, cfg)
-            and n <= MAX_TOKENS and mx_specs.block_size == 32
-            and (cfg.pred_mode in QKV_PRED_MODES or not cfg.approx_flag))
+            and n <= max_tokens and mx_specs.block_size == 32
+            and (cfg.pred_mode in pred_modes or not cfg.approx_flag))
+
+
+def split_t_eligible(mx_specs, cfg: TopKAttentionConfig, n: int) -> bool:
+    """Does DiT's ``qkv_layout="split_t"`` take the split-emission entry
+    (K7)?  The JAX package's gate: N % 128 == 0, its fused qkv entry's
+    conditions (N <= QKV_GATE_TOKENS, every kernel predictor) and the fast
+    path's formats.  The port's K7 raises for what it does not serve yet
+    (N > MAX_TOKENS, predictors other than ex_pred), naming ROADMAP.md."""
+    return (n % 128 == 0
+            and fused_qkv_eligible(mx_specs, cfg, n, QKV_GATE_TOKENS,
+                                   _KERNEL_PRED_MODES)
+            and fused_eligible(mx_specs, mx_specs.a_elem_format,
+                               mx_specs.w_elem_format))
 
 
 def fused_qkv_topk_attention(qkv: torch.Tensor, num_heads: int, scale: float,

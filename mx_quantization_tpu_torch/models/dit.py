@@ -23,10 +23,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..attention import (TopKAttentionConfig, fused_qkv_eligible,
-                         fused_qkv_topk_attention, topk_attention)
+from ..attention import (TopKAttentionConfig, _kernel_elemwise_args,
+                         _kernel_format_args, fused_qkv_eligible,
+                         fused_qkv_topk_attention, split_t_eligible,
+                         topk_attention)
 from ..device import resolve_device
-from ..ops.linear import linear
+from ..ops.fastquant import (bf_fast, fused_eligible, quantize_mx_fast,
+                             quantize_mx_serving)
+from ..ops.kernels.ln_modulate_quantize import ln_modulate_quantize
+from ..ops.kernels.topk_attention import fused_topk_attention_qkv_t
+from ..ops.linear import gelu_linear, linear, mm_f32
 from ..specs import MxSpecs
 from .common import patch_embed
 
@@ -61,9 +67,23 @@ class DiTConfig:
 class DiTQuantConfig:
     """Quantization plan (same fields as the JAX package's).
 
-    The port runs ``qkv_layout="fused"`` with ``fuse_ln_modulate`` and
-    ``fuse_gelu`` off; the other settings raise (their kernels are queued
-    in ROADMAP.md)."""
+    Three opt-ins, each off by default, choose kernels where they apply
+    (the gates are the JAX package's):
+      * ``fuse_ln_modulate``: every block's two LN + modulate passes and
+        the final layer's run as kernel K5 (LN, modulate and the MX
+        quantize of the consumer linear's input in one pass), which then
+        skips its own quantize.  Applies with MX quantization at bfloat=0
+        in both tiers, and at bfloat=16 (the DiT operating point) in the
+        serving tier only.
+      * ``fuse_gelu``: the MLP's GELU and the fc2 input quantize run as
+        kernel K6.  Serving tier only, where the fc1 output's last axis is
+        block-aligned and holds at least 2^16 elements.
+      * ``qkv_layout="split_t"``: the qkv projection emits q and k
+        pre-transposed and attention runs as kernel K7 (K2's math).  Both
+        tiers, where N % 128 == 0 and the fused qkv entry's conditions
+        hold; the port's K7 takes N <= 256 and the ex_pred predictor (or
+        none) and raises beyond them (ROADMAP.md).
+    """
     mx_specs: Optional[MxSpecs] = None
     mx_quant: bool = False
     top_k: bool = False
@@ -224,23 +244,74 @@ def init_dit(cfg: DiTConfig, generator: torch.Generator, device="cuda",
 
 
 # ----------------------------------------------------------------------
-def _unsupported(qcfg: DiTQuantConfig):
-    if qcfg.qkv_layout != "fused" or qcfg.fuse_ln_modulate or qcfg.fuse_gelu:
-        raise NotImplementedError(
-            "qkv_layout='split_t', fuse_ln_modulate and fuse_gelu need "
-            "kernels K7, K5 and K6, which are not ported yet (ROADMAP.md)")
+def _qkv_split_t(x: torch.Tensor, qkv: nn.Module, mxs: MxSpecs, H: int,
+                 D: int, x_prequantized: bool):
+    """Quantized qkv projection emitting q and k pre-transposed, (2*H*Dp, B,
+    N), and v (B, N, H*D): ``linear(x, W_qkv)`` reordered, with the same
+    contraction per element and the same bf_fast rounds, the activation
+    quantized once (or taken on the grid from K5).  Each head's q and k
+    weight rows (and bias) are padded to Dp with zeros on every forward, as
+    the JAX package does, so the padded rows of qk_t are zero."""
+    bs = mxs.block_size
+    sb = mxs.effective_scale_bits()
+    fl = mxs.mx_flush_fp32_subnorms
+    Dp = -(-max(D, 8) // bs) * bs
+    if x_prequantized or mxs.prequantized_activations:
+        qx = bf_fast(x, mxs).to(torch.bfloat16)
+    else:
+        qx = quantize_mx_serving(x, mxs.a_elem_format, bs, sb, axis=-1,
+                                 flush=fl, bfloat=mxs.bfloat)
+    w, b = qkv.weight, qkv.bias
+    if mxs.prequantized_weights:
+        qw = w.to(torch.bfloat16)
+    else:
+        qw = quantize_mx_fast(bf_fast(w, mxs), mxs.w_elem_format, bs, sb,
+                              axis=-1, flush=fl)
+    B, N, C = x.shape
+    qw_qk = nn.functional.pad(qw[:2 * H * D].reshape(2 * H, D, C),
+                              (0, 0, 0, Dp - D)).reshape(2 * H * Dp, C)
+    # (2*H*Dp, C) . (B*N, C)^T: the product writes q and k pre-transposed
+    qk_t = bf_fast(mm_f32(qw_qk, qx.reshape(B * N, C)), mxs).reshape(
+        2 * H * Dp, B, N)
+    v = bf_fast(mm_f32(qx, qw[2 * H * D:]), mxs)
+    if b is not None:
+        b_qk = nn.functional.pad(b[:2 * H * D].reshape(2 * H, D),
+                                 (0, Dp - D)).reshape(-1)
+        qk_t = bf_fast(qk_t + bf_fast(b_qk, mxs)[:, None, None], mxs)
+        v = bf_fast(v + bf_fast(b[2 * H * D:], mxs), mxs)
+    return qk_t, v, Dp
 
 
 def dit_attention(attn: nn.Module, x: torch.Tensor, cfg: DiTConfig,
-                  specs: Optional[MxSpecs],
-                  attn_cfg: TopKAttentionConfig) -> torch.Tensor:
-    """Self-attention: the fused qkv kernel (K2) where it serves the config,
-    else the split q/k/v entry (``topk_attention``: K3, or the unquantized
-    attention), as the JAX package routes."""
+                  specs: Optional[MxSpecs], attn_cfg: TopKAttentionConfig,
+                  x_prequantized: bool = False,
+                  qkv_layout: str = "fused") -> torch.Tensor:
+    """Self-attention, routed as the JAX package routes: with
+    ``qkv_layout="split_t"``, where it applies, the split-emission
+    projection and kernel K7; else the fused qkv kernel (K2) where it serves
+    the config, else the split q/k/v entry (``topk_attention``: K3, or the
+    unquantized attention).  ``x_prequantized``: x is already on the MX
+    grid (K5's output), so the qkv projection skips its quantize."""
     B, N, C = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     mxs = specs if attn_cfg.mx_quant else None
-    qkv = linear(x, attn.qkv.weight, attn.qkv.bias, mx_specs=mxs)
+    if qkv_layout == "split_t" and split_t_eligible(mxs, attn_cfg, N):
+        qk_t, v, _ = _qkv_split_t(x, attn.qkv, mxs, H, D, x_prequantized)
+        if attn_cfg.out_dtype == "bfloat16":
+            qk_t, v = qk_t.to(torch.bfloat16), v.to(torch.bfloat16)
+        acfg = attn_cfg
+        if not acfg.top_k:  # an excluded block: dense, k = N
+            acfg = acfg._replace(top_k=True, approx_flag=False, k=N)
+        out = fused_topk_attention_qkv_t(
+            qk_t, v, H, k=acfg.k, scale=D ** -0.5, n_valid=N,
+            block_size=mxs.block_size, scale_bits=mxs.effective_scale_bits(),
+            approx=acfg.approx_flag, pred_mode=acfg.pred_mode,
+            key_bits=acfg.key_bits, out_dtype=getattr(torch, acfg.out_dtype),
+            contract=acfg.contract, **_kernel_elemwise_args(mxs),
+            **_kernel_format_args(mxs))
+        return linear(out, attn.proj.weight, attn.proj.bias, mx_specs=mxs)
+    qkv = linear(x, attn.qkv.weight, attn.qkv.bias,
+                 mx_specs=_preq(mxs, x_prequantized))
     if attn_cfg.out_dtype == "bfloat16":
         qkv = qkv.to(torch.bfloat16)  # values already sit on the bf16 grid
     if fused_qkv_eligible(mxs, attn_cfg, N):
@@ -260,24 +331,60 @@ def _ln(x, eps=1e-6):
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def _lnmod_eligible(qcfg: DiTQuantConfig, specs: Optional[MxSpecs],
+                    hidden: int) -> bool:
+    """Does ``fuse_ln_modulate`` take kernel K5 (JAX ``dit_forward``'s
+    gate)?  At bfloat=16 the kernel rounds the modulated result to bf16
+    from f32 statistics, a serving-tier relaxation, so it applies there in
+    the serving tier only."""
+    return (qcfg.fuse_ln_modulate and specs is not None
+            and fused_eligible(specs, specs.a_elem_format,
+                               specs.w_elem_format)
+            and (specs.bfloat == 0
+                 or (specs.bfloat == 16 and qcfg.contract == "serving"))
+            and hidden % specs.block_size == 0)
+
+
+def _lnmod(x, shift, scale, specs, fused: bool):
+    """LN and adaLN modulate -> (h, on the MX grid?).  ``fused``: kernel K5,
+    whose output is the consumer linear's quantized input."""
+    if not fused:
+        return modulate(_ln(x), shift, scale), False
+    return ln_modulate_quantize(
+        x, shift, scale, specs.a_elem_format, specs.block_size,
+        specs.effective_scale_bits(), flush=specs.mx_flush_fp32_subnorms,
+        bfloat=specs.bfloat), True
+
+
+def _preq(mxs, preq: bool):
+    """The consumer linear's specs for an input already on the MX grid."""
+    return mxs.replace(prequantized_activations=True) \
+        if (preq and mxs is not None) else mxs
+
+
 def dit_block_step(blk: DiTBlock, attn_cfg: TopKAttentionConfig,
                    x: torch.Tensor, cb: torch.Tensor, *, cfg: DiTConfig,
-                   specs: Optional[MxSpecs], act_dtype) -> torch.Tensor:
-    """One DiT block (adaLN-Zero attention + MLP)."""
+                   specs: Optional[MxSpecs], act_dtype,
+                   fuse_lnmod: bool = False, qkv_layout: str = "fused",
+                   fuse_gelu: bool = False) -> torch.Tensor:
+    """One DiT block (adaLN-Zero attention + MLP).  ``fuse_lnmod`` is
+    ``_lnmod_eligible``'s answer; ``qkv_layout`` and ``fuse_gelu`` are the
+    plan's (``DiTQuantConfig``)."""
     mxs = specs if attn_cfg.mx_quant else None
     mod = linear(nn.functional.silu(cb), blk.adaLN.weight,
                  blk.adaLN.bias).to(act_dtype)
     (shift_msa, scale_msa, gate_msa,
      shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
-    h = modulate(_ln(x), shift_msa, scale_msa)
+    fused = fuse_lnmod and attn_cfg.mx_quant
+    h, h_preq = _lnmod(x, shift_msa, scale_msa, specs, fused)
     x = x + gate_msa[:, None] * dit_attention(
-        blk.attn, h, cfg, specs, attn_cfg).to(act_dtype)
-    h = modulate(_ln(x), shift_mlp, scale_mlp)
+        blk.attn, h, cfg, specs, attn_cfg, x_prequantized=h_preq,
+        qkv_layout=qkv_layout).to(act_dtype)
+    h, h_preq = _lnmod(x, shift_mlp, scale_mlp, specs, fused)
     h = linear(h, blk.mlp.fc1.weight, blk.mlp.fc1.bias,
-               mx_specs=mxs).to(act_dtype)
-    h = nn.functional.gelu(h, approximate="tanh")  # reference GELU(tanh)
-    h = linear(h, blk.mlp.fc2.weight, blk.mlp.fc2.bias,
-               mx_specs=mxs).to(act_dtype)
+               mx_specs=_preq(mxs, h_preq)).to(act_dtype)
+    h = gelu_linear(h, blk.mlp.fc2.weight, blk.mlp.fc2.bias, mxs, fuse_gelu,
+                    attn_cfg.contract).to(act_dtype)
     return x + gate_mlp[:, None] * h
 
 
@@ -309,8 +416,10 @@ def dit_final_layer(model: DiT, h: torch.Tensor, c: torch.Tensor,
     mod = linear(nn.functional.silu(c), fl.adaLN.weight, fl.adaLN.bias,
                  mx_specs=specs)
     shift, scale = mod.to(h.dtype).chunk(2, dim=-1)
-    h = modulate(_ln(h), shift, scale)
-    h = linear(h, fl.linear.weight, fl.linear.bias, mx_specs=specs)
+    h, preq = _lnmod(h, shift, scale, specs,
+                     _lnmod_eligible(qcfg, specs, cfg.hidden_size))
+    h = linear(h, fl.linear.weight, fl.linear.bias,
+               mx_specs=_preq(specs, preq))
     h = h.to(torch.float32)
 
     B, c_out, p = h.shape[0], cfg.out_channels, cfg.patch_size
@@ -324,13 +433,15 @@ def dit_forward(model: DiT, x: torch.Tensor, t: torch.Tensor,
                 timestep_idx: Optional[int] = None) -> torch.Tensor:
     """(B, C, H, W) latents + (B,) timesteps + (B,) labels ->
     (B, outC, H, W)."""
-    _unsupported(qcfg)
     specs = qcfg.mx_specs if qcfg.mx_quant else None
     h, c = dit_embed(model, x, t, y, qcfg)
     cb = c.to(h.dtype)
+    fuse_lnmod = _lnmod_eligible(qcfg, specs, model.cfg.hidden_size)
     for i, blk in enumerate(model.blocks):
         h = dit_block_step(blk, qcfg.block_attn_cfg(i, timestep_idx), h, cb,
-                           cfg=model.cfg, specs=specs, act_dtype=h.dtype)
+                           cfg=model.cfg, specs=specs, act_dtype=h.dtype,
+                           fuse_lnmod=fuse_lnmod, qkv_layout=qcfg.qkv_layout,
+                           fuse_gelu=qcfg.fuse_gelu)
     return dit_final_layer(model, h, c, qcfg)
 
 

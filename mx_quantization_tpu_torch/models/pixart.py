@@ -17,9 +17,9 @@ attention (port of the JAX package's ``models/pixart.py``, forward only).
 The parameters live in a ``PixArt`` module whose names follow the JAX
 parameter tree (``blocks.<i>.attn1.to_q.weight``, ``adaln_single.linear``,
 ...); the blocks are an ``nn.ModuleList`` walked by a Python loop.  Both
-attentions reach ``attention.topk_attention``, that is kernel K3.  Not
-ported yet, and raising: micro-conditioning (the 1024^2 model), the fused
-GELU quantize (kernel K6) and the ELSA predictor.
+attentions reach ``attention.topk_attention``, that is kernel K3; the
+serving tier's ``fuse_gelu`` opt-in takes kernel K6.  Not ported yet, and
+raising: micro-conditioning (the 1024^2 model) and the ELSA predictor.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from torch import nn
 
 from ..attention import TopKAttentionConfig, topk_attention
 from ..device import resolve_device
-from ..ops.linear import linear
+from ..ops.linear import gelu_linear, linear
 from ..specs import MxSpecs
 from .common import patch_embed
 from .dit import Affine, get_2d_sincos_pos_embed, timestep_embedding
@@ -72,7 +72,10 @@ class PixArtConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PixArtQuantConfig:
-    """set_config semantics (same fields as the JAX package's)."""
+    """set_config semantics (same fields as the JAX package's).
+    ``fuse_gelu`` (off by default) runs the feed-forward's GELU and the fc2
+    input quantize as kernel K6, in the serving tier, where the fc1
+    output's last axis is block-aligned and holds at least 2^16 elements."""
     mx_specs: Optional[MxSpecs] = None
     mx_quant: bool = False
     self_top_k: bool = False
@@ -246,11 +249,12 @@ def pixart_block_apply(blk: PixArtBlock, x: torch.Tensor, ctx: torch.Tensor,
                        t6: torch.Tensor, cfg: PixArtConfig, specs,
                        self_cfg: TopKAttentionConfig,
                        cross_cfg: TopKAttentionConfig, bias=None,
-                       act_dtype=torch.float32) -> torch.Tensor:
+                       act_dtype=torch.float32,
+                       fuse_gelu: bool = False) -> torch.Tensor:
     """One transformer block (ada_norm_single): adaLN-single modulation, MX
     self-attention, cross-attention (the bias added to the true and the
     predicted scores inside ``topk_attention``), MX feed-forward with
-    GELU(tanh)."""
+    GELU(tanh); ``fuse_gelu`` as in ``PixArtQuantConfig``."""
     B = x.shape[0]
     d = cfg.inner_dim
     mxs = specs if self_cfg.mx_quant else None
@@ -266,9 +270,9 @@ def pixart_block_apply(blk: PixArtBlock, x: torch.Tensor, ctx: torch.Tensor,
     h = _ln(x, cfg.norm_eps) * (1 + scale_mlp) + shift_mlp
     h = linear(h, blk.ff.fc1.weight, blk.ff.fc1.bias,
                mx_specs=mxs).to(act_dtype)
-    h = nn.functional.gelu(h, approximate="tanh")  # "gelu-approximate"
-    h = linear(h, blk.ff.fc2.weight, blk.ff.fc2.bias,
-               mx_specs=mxs).to(act_dtype)
+    # "gelu-approximate"
+    h = gelu_linear(h, blk.ff.fc2.weight, blk.ff.fc2.bias, mxs, fuse_gelu,
+                    self_cfg.contract).to(act_dtype)
     return x + gate_mlp * h
 
 
@@ -327,9 +331,6 @@ def pixart_forward(model: PixArt, hidden_states: torch.Tensor,
     -> (B, out_channels, H, W).  encoder_attention_mask: (B, S) of 0/1,
     turned into the additive bias (1 - mask) * -10000 of shape
     (B, 1, 1, S), or an additive bias already."""
-    if qcfg.fuse_gelu:
-        raise NotImplementedError(
-            "fuse_gelu needs kernel K6, which is not ported yet (ROADMAP.md)")
     cfg = model.cfg
     specs = qcfg.mx_specs if qcfg.mx_quant else None
     bias = encoder_attention_mask
@@ -341,5 +342,6 @@ def pixart_forward(model: PixArt, hidden_states: torch.Tensor,
         x = pixart_block_apply(blk, x, ctx, t6, cfg, specs,
                                qcfg.self_attn_cfg(i, timestep_idx),
                                qcfg.cross_attn_cfg(i, timestep_idx),
-                               bias=bias, act_dtype=x.dtype)
+                               bias=bias, act_dtype=x.dtype,
+                               fuse_gelu=qcfg.fuse_gelu)
     return pixart_final_layer(model, x, emb)

@@ -8,7 +8,8 @@ values match the JAX fast path bit for bit on normal-range inputs.
 ``quantize_mx_serving`` is the activation quantize in front of every
 quantized linear: on a CUDA tensor it launches kernel K1
 (``kernels/quantize.py``) or raises; only a CPU tensor takes the plain
-torch path.
+torch path.  ``gelu_quantize_serving`` is the serving tier's fused GELU and
+fc2-input quantize (kernel K6), under the same rule.
 """
 
 from __future__ import annotations
@@ -64,6 +65,21 @@ def bf16_round_half_away(x: torch.Tensor) -> torch.Tensor:
     r = int_bits(x) + 0x8000
     r &= -65536
     return torch.where(torch.isnan(x), x, r.view(torch.float32))
+
+
+def lane_sum(e: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a multiple of 32) in the kernels' warp order:
+    lane l adds elements l + 32 j in j order, then the 32 lanes add by an
+    xor butterfly.  Returns (..., 1)."""
+    lanes = e.reshape(*e.shape[:-1], -1, 32)
+    acc = lanes[..., 0, :]
+    for j in range(1, lanes.shape[-2]):
+        acc = acc + lanes[..., j, :]
+    w = 16
+    while w:
+        acc = acc[..., :w] + acc[..., w:2 * w]
+        w //= 2
+    return acc
 
 
 def bf_fast(x: torch.Tensor, specs) -> torch.Tensor:
@@ -167,3 +183,22 @@ def quantize_mx_serving(x: torch.Tensor, elem_format: str, block_size: int,
         x = bf16_round_half_away(x)
     return quantize_mx_fast(x, elem_format, block_size, scale_bits,
                             axis=axis, out_dtype=out_dtype, flush=flush)
+
+
+def gelu_quantize_serving(x: torch.Tensor, specs, approximate: bool = True):
+    """Fused GELU + MX quantize of the fc2 input (serving tier).
+
+    Returns the MX-grid fc2 operand in bf16 where the one-pass kernel
+    applies (last axis block-aligned, at least 2^16 elements, on the card:
+    kernel K6; on the CPU: its plain version), or None: the caller keeps the
+    unfused GELU and quantize, as the JAX package does off those
+    conditions."""
+    bs = specs.block_size
+    if not (x.shape[-1] % bs == 0 and x.numel() >= (1 << 16)
+            and x.device.type in ("cuda", "cpu")):
+        return None
+    from .kernels.quantize import gelu_quantize
+    return gelu_quantize(x, specs.a_elem_format, bs,
+                         specs.effective_scale_bits(),
+                         flush=specs.mx_flush_fp32_subnorms,
+                         bfloat=specs.bfloat, approximate=approximate)

@@ -1,20 +1,25 @@
-"""Kernels K2 and K3: fused MX top-k attention.
+"""Kernels K2, K7 and K3: fused MX top-k attention.
 
 K2 (``csrc/topk_attention_qkv.cu``) takes self-attention straight from the
 fused qkv output; it replaces the TPU kernel
 ``mx_quantization_tpu/ops/kernels/topk_attention.py``
-``fused_topk_attention_qkv``.  K3 (``csrc/topk_attention_split.cu``) takes
-split q (B, H, N, D) and k, v (B, H, S, D), S != N allowed, with an optional
-key bias (B, 1, 1, S); it replaces the short path of ``fused_topk_attention``
-(``_split_impl``).  Each source's note says what bounds it and how the
-design answers.  ``fused_topk_attention_qkv`` and ``fused_topk_attention``
-launch their kernel on a CUDA tensor and raise where they cannot; only a
-CPU tensor takes the plain versions ``fused_topk_attention_qkv_ref`` and
+``fused_topk_attention_qkv``.  K7 (the same source, another staging) takes
+q and k pre-transposed (2*H*Dp, B, N) and v (B, N, H*D) from the
+split-emission qkv projection; it replaces ``fused_topk_attention_qkv_t``
+and equals K2 bit for bit on the same q, k, v values.  K3
+(``csrc/topk_attention_split.cu``) takes split q (B, H, N, D) and k, v
+(B, H, S, D), S != N allowed, with an optional key bias (B, 1, 1, S); it
+replaces the short path of ``fused_topk_attention`` (``_split_impl``).
+Each source's note says what bounds it and how the design answers.
+``fused_topk_attention_qkv``, ``fused_topk_attention_qkv_t`` and
+``fused_topk_attention`` launch their kernel on a CUDA tensor and raise
+where they cannot; only a CPU tensor takes the plain versions
+``fused_topk_attention_qkv_ref``, ``fused_topk_attention_qkv_t_ref`` and
 ``fused_topk_attention_ref``.  Each kernel's shape limits are the constants
 below, which the wrappers, the eligibility checks of ``attention.py`` and
 (through ``nvcc -D``) the CUDA sources all read.
 
-Numerics (both kernels and their plain versions), per (batch row, head):
+Numerics (the kernels and their plain versions), per (batch row, head):
   * q and k MX-quantized along D (zero-padded to the block), v along the
     keys in 32-key blocks per column; an f32 input at bfloat=16 is first
     rounded to bf16 half away from zero; flush zeroes a block whose maximum
@@ -52,17 +57,21 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from ...formats import FormatParams
-from ..fastquant import bf16_round_half_away, pow2, quantize_blocks
+from ..fastquant import bf16_round_half_away, lane_sum, pow2, quantize_blocks
 from . import build
 
 SOURCE = "topk_attention_qkv.cu"
 SPLIT_SOURCE = "topk_attention_split.cu"
 # K2 holds a whole head in shared memory: at most MAX_TOKENS tokens
 MAX_TOKENS = 256
+# the TPU kernels' qkv entries take up to QKV_GATE_TOKENS tokens; DiT's
+# split-emission gate keeps that limit, and K7 raises above MAX_TOKENS
+QKV_GATE_TOKENS = 512
 # K3 stages the keys in chunks: at most MAX_SPLIT_TOKENS queries and keys
 # (the TPU kernel's short path); longer sequences are kernel K4's
 MAX_SPLIT_TOKENS = 512
@@ -124,19 +133,6 @@ def _kth_keys(keys: torch.Tensor, k: int, key_bits: int):
         hi = torch.where(up, hi, mid)
         cnt_hi = torch.where(up, cnt_hi, cnt)
     return lo, cnt_hi
-
-
-def _lane_sum(e: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in the kernel's warp order."""
-    lanes = e.reshape(*e.shape[:-1], -1, 32)
-    acc = lanes[..., 0, :]
-    for j in range(1, lanes.shape[-2]):
-        acc = acc + lanes[..., j, :]
-    w = 16
-    while w:
-        acc = acc[..., :w] + acc[..., w:2 * w]
-        w //= 2
-    return acc
 
 
 def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -216,7 +212,7 @@ def _attention_probs(st: torch.Tensor, s_sel, n_keys: int, *, k: int,
 
     masked = torch.where(sel, st, _NEG)
     ex = torch.exp(masked - masked.amax(-1, keepdim=True))
-    attn = ex / _lane_sum(ex)
+    attn = ex / lane_sum(ex)
     if relaxed:
         return attn.to(torch.bfloat16).to(torch.float32)
     if bfloat == 16:
@@ -235,12 +231,17 @@ def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
                                  out_dtype=torch.float32, bfloat: int = 0,
                                  flush: bool = False, ebits: int = 0,
                                  emax: int = 0, max_norm: float = 0.0,
-                                 contract: str = "exact") -> torch.Tensor:
-    """Plain PyTorch version of K2, vectorized over (batch, head)."""
+                                 contract: str = "exact",
+                                 n_valid: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of K2, vectorized over (batch, head).  Keys at
+    or past ``n_valid`` (default: all N tokens) are masked; every token
+    gets its query row."""
     _check_args(pred_mode, approx, contract, key_bits, block_size)
     relaxed = contract == "serving"
     fmt = FormatParams(ebits, mbits, emax, max_norm, 0.0)
     B, N, F = qkv.shape
+    n_valid = N if n_valid is None else n_valid
     H = num_heads
     D = F // (3 * H)
     Np = _round_up(N, 32)
@@ -265,10 +266,10 @@ def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
     st = st * scale
 
     s_sel = None
-    if approx and k < N:
+    if approx and k < n_valid:
         a = _ex_pred_operand(qk, e, D)
         s_sel = _blockwise_scores(a[0], a[1])
-    attn = _attention_probs(st, s_sel, N, k=k, key_bits=key_bits,
+    attn = _attention_probs(st, s_sel, n_valid, k=k, key_bits=key_bits,
                             relaxed=relaxed, bfloat=bfloat, fmt=fmt,
                             scale_bits=scale_bits, flush=flush)
 
@@ -277,6 +278,33 @@ def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
         out = bf16_round_half_away(out)
     out = out[:, :, :N].permute(0, 2, 1, 3).reshape(B, N, H * D)
     return out.to(out_dtype)
+
+
+def _split_t_shapes(qk_t: torch.Tensor, v: torch.Tensor, num_heads: int):
+    """(H, Dp, D) of K7's operands, checked."""
+    H = num_heads
+    if qk_t.dim() != 3 or v.dim() != 3 or qk_t.shape[0] % (2 * H) or \
+            v.shape[2] % H or tuple(v.shape[:2]) != tuple(qk_t.shape[1:]):
+        raise ValueError("qk_t must be (2*H*Dp, B, N) and v (B, N, H*D), got "
+                         f"{tuple(qk_t.shape)}, {tuple(v.shape)} with H={H}")
+    Dp, D = qk_t.shape[0] // (2 * H), v.shape[2] // H
+    if Dp < D:
+        raise ValueError(f"qk_t has {Dp} rows per head, fewer than D={D}")
+    return H, Dp, D
+
+
+def fused_topk_attention_qkv_t_ref(qk_t: torch.Tensor, v: torch.Tensor,
+                                   num_heads: int, *, k: int, scale: float,
+                                   n_valid: int, **kw) -> torch.Tensor:
+    """Plain PyTorch version of K7: the operands rearranged to the fused
+    qkv layout (each head's first D rows of q and k; the padded rows are
+    zero) and handed to K2's plain version.  Keywords as K2's."""
+    H, Dp, D = _split_t_shapes(qk_t, v, num_heads)
+    _, B, N = qk_t.shape
+    qk = qk_t.reshape(2, H, Dp, B, N)[:, :, :D].permute(3, 4, 0, 1, 2)
+    qkv = torch.cat([qk.reshape(B, N, 2 * H * D), v.to(qk_t.dtype)], dim=-1)
+    return fused_topk_attention_qkv_ref(qkv, H, k=k, scale=scale,
+                                        n_valid=n_valid, **kw)
 
 
 def _split_side(x: torch.Tensor, n_pad: int, Dp: int, fmt, scale_bits: int,
@@ -375,6 +403,9 @@ def _library() -> ctypes.CDLL:
     lib.topk_attention_qkv.argtypes = [p, p, i, i, i, i, i, i, i, f, i, i,
                                        i, i, i, i, i, i, f, i, p]
     lib.topk_attention_qkv.restype = ctypes.c_int
+    lib.topk_attention_qkv_t.argtypes = [p, p, p] + [i] * 9 + [f] + [
+        i] * 8 + [f, i, p]
+    lib.topk_attention_qkv_t.restype = ctypes.c_int
     return lib
 
 
@@ -444,6 +475,82 @@ def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
 # keyword arguments)
 fused_topk_attention_qkv.launches = 0
 fused_topk_attention_qkv.sites = collections.Counter()
+
+
+# ----------------------------------------------------------------------
+# K7 wrapper
+# ----------------------------------------------------------------------
+def fused_topk_attention_qkv_t(qk_t: torch.Tensor, v: torch.Tensor,
+                               num_heads: int, *, k: int, scale: float,
+                               n_valid: int, block_size: int = 32,
+                               mbits: int = 8, scale_bits: int = 8,
+                               approx: bool = True,
+                               pred_mode: str = "ex_pred",
+                               key_bits: int = 32, out_dtype=torch.float32,
+                               bfloat: int = 0, flush: bool = False,
+                               ebits: int = 0, emax: int = 0,
+                               max_norm: float = 0.0,
+                               contract: str = "exact") -> torch.Tensor:
+    """qk_t (2*H*Dp, B, N) pre-transposed q and k (each head's Dp rows, the
+    rows past D and the tokens past ``n_valid`` zero) and v (B, N, H*D) ->
+    (B, N, H*D) attention output; keys past ``n_valid`` are masked.
+
+    K7 on CUDA tensors; the plain version on CPU tensors."""
+    kw = dict(k=k, scale=scale, n_valid=n_valid, block_size=block_size,
+              mbits=mbits, scale_bits=scale_bits, approx=approx,
+              pred_mode=pred_mode, key_bits=key_bits, out_dtype=out_dtype,
+              bfloat=bfloat, flush=flush, ebits=ebits, emax=emax,
+              max_norm=max_norm, contract=contract)
+    if qk_t.device.type == "cpu":
+        return fused_topk_attention_qkv_t_ref(qk_t, v, num_heads, **kw)
+    _check_args(pred_mode, approx, contract, key_bits, block_size)
+    if qk_t.device.type != "cuda" or v.device != qk_t.device:
+        raise ValueError("K7 runs on CUDA tensors of one device (or on CPU "
+                         f"tensors), not {qk_t.device}, {v.device}")
+    H, Dp, D = _split_t_shapes(qk_t, v, num_heads)
+    _, B, N = qk_t.shape
+    if qk_t.dtype not in (torch.float32, torch.bfloat16) or \
+            v.dtype != qk_t.dtype:
+        raise TypeError("K7 takes float32 or bfloat16 qk_t and v of one "
+                        f"dtype, not {qk_t.dtype}, {v.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K7 writes float32 or bfloat16, not {out_dtype}")
+    if not (qk_t.is_contiguous() and v.is_contiguous()):
+        raise ValueError("K7 takes contiguous qk_t and v")
+    if k < 1 or not 1 <= n_valid <= N:
+        raise ValueError(f"need k >= 1 and 1 <= n_valid <= N={N}, got k={k}, "
+                         f"n_valid={n_valid}")
+    if N > MAX_TOKENS or D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"K7 holds a head in shared memory and takes N <= {MAX_TOKENS}, "
+            f"D <= {MAX_HEAD_DIM} (got N={N}, D={D}); the TPU kernel also "
+            "takes N up to 512, which the port does not yet (ROADMAP.md)")
+    lib = _library()
+    if lib.topk_attention_qkv_smem_bytes(N, D) == 0:
+        raise ValueError(f"K7 cannot take N={N}, D={D}")
+    out = torch.empty(B, N, H * D, dtype=out_dtype, device=qk_t.device)
+    with torch.cuda.device(qk_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.topk_attention_qkv_t(
+            qk_t.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, int(n_valid),
+            H, D, Dp, int(qk_t.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), int(k), float(scale),
+            int(approx), int(key_bits), int(contract == "serving"),
+            int(bfloat == 16), int(flush), int(ebits), int(mbits), int(emax),
+            float(max_norm), int(scale_bits), stream)
+    if err:
+        raise RuntimeError(f"K7 launch failed with CUDA error {err}")
+    fused_topk_attention_qkv_t.launches += 1
+    fused_topk_attention_qkv_t.sites[
+        (tuple(qk_t.shape), tuple(v.shape), qk_t.dtype, num_heads,
+         tuple(kw.items()))] += 1
+    return out
+
+
+# launches, and launches per call site: (qk_t shape, v shape, dtype, heads,
+# keyword arguments)
+fused_topk_attention_qkv_t.launches = 0
+fused_topk_attention_qkv_t.sites = collections.Counter()
 
 
 # ----------------------------------------------------------------------

@@ -14,8 +14,8 @@ from __future__ import annotations
 import torch
 
 from ..specs import require_fused
-from .fastquant import (bf_fast, fused_eligible, quantize_mx_fast,
-                        quantize_mx_serving)
+from .fastquant import (bf_fast, fused_eligible, gelu_quantize_serving,
+                        quantize_mx_fast, quantize_mx_serving)
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,3 +65,22 @@ def linear(x, w, b=None, mx_specs=None):
             "these specs need the emulation engine, which is not ported yet "
             "(ROADMAP.md queue 1)")
     return _linear_fwd_fast(x, w, b, mx_specs)
+
+
+def gelu_linear(h, w, b, mx_specs, fuse_gelu: bool, contract: str):
+    """``linear(GELU_tanh(h), w, b)``: the MLP's second half in DiT and
+    PixArt blocks.  With ``fuse_gelu`` in the serving tier the GELU rides in
+    the linear's input quantize (``gelu_quantize_serving``, kernel K6) where
+    its gate holds, and the linear takes that output as prequantized; else
+    the unfused GELU, as the JAX package does."""
+    hq = None
+    if (fuse_gelu and mx_specs is not None and contract == "serving"
+            and not mx_specs.quantize_backprop
+            and fused_eligible(mx_specs, mx_specs.a_elem_format,
+                               mx_specs.w_elem_format)):
+        hq = gelu_quantize_serving(h, mx_specs, approximate=True)
+    if hq is None:
+        return linear(torch.nn.functional.gelu(h, approximate="tanh"), w, b,
+                      mx_specs=mx_specs)
+    return linear(hq.to(h.dtype), w, b,
+                  mx_specs=mx_specs.replace(prequantized_activations=True))

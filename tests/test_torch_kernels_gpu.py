@@ -1,10 +1,14 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA;
-K3: split q/k/v top-k attention, CUDA).
+K3: split q/k/v top-k attention, CUDA; K5: LN + modulate + MX quantize,
+CUDA; K6: GELU + MX quantize, Triton; K7: split-emission qkv top-k
+attention, CUDA).
 
 Marked ``gpu``; each test skips where no CUDA device exists.  On a machine
 with one:  python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -13,11 +17,14 @@ import torch
 from mx_quantization_tpu_torch.formats import format_params
 from mx_quantization_tpu_torch.models.dit import (DiTConfig, DiTQuantConfig,
                                                   init_dit)
-from mx_quantization_tpu_torch.ops.kernels.quantize import (mx_quantize,
-                                                            mx_quantize_ref)
+from mx_quantization_tpu_torch.ops.kernels.ln_modulate_quantize import (
+    ln_modulate_quantize, ln_modulate_quantize_ref)
+from mx_quantization_tpu_torch.ops.kernels.quantize import (
+    gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
     fused_topk_attention, fused_topk_attention_qkv,
-    fused_topk_attention_qkv_ref, fused_topk_attention_ref)
+    fused_topk_attention_qkv_ref, fused_topk_attention_qkv_t,
+    fused_topk_attention_qkv_t_ref, fused_topk_attention_ref)
 from mx_quantization_tpu_torch.ops.linear import mm_f32
 from mx_quantization_tpu_torch.workloads.dit import dit_mx_specs, sample_dit
 
@@ -177,6 +184,108 @@ def test_k3_counts_launches_and_refuses_k4_shapes(cuda):
     assert fused_topk_attention.launches == before + 1
 
 
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8_e4m3", "fp4_e2m1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bfloat", [0, 16])
+@pytest.mark.parametrize("flush", [False, True])
+@pytest.mark.parametrize("C", [96, 1152])
+def test_k5_matches_plain(cuda, fmt, dtype, bfloat, flush, C):
+    x = (3 * _normal((3, 50, C), 41) + 0.5).to(dtype)  # rows % 8 != 0
+    shift, scale = 0.3 * _normal((3, C), 42), 0.3 * _normal((3, C), 43)
+    if flush:  # a block of subnormal modulated values
+        scale[0, :32], shift[0, :32] = -1.0, 1e-39
+    args = [t.to(cuda) for t in (x, shift, scale)]
+    kw = dict(elem_format=fmt, flush=flush, bfloat=bfloat)
+    got = ln_modulate_quantize(*args, **kw)
+    want = ln_modulate_quantize_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def test_k5_counts_launches_and_refuses_wide_rows(cuda):
+    x, s = torch.ones(2, 8, 64, device=cuda), torch.zeros(2, 64, device=cuda)
+    before = ln_modulate_quantize.launches
+    ln_modulate_quantize(x, s, s)
+    assert ln_modulate_quantize.launches == before + 1
+    wide, sw = torch.ones(1, 2, 1280, device=cuda), torch.zeros(1, 1280,
+                                                                 device=cuda)
+    with pytest.raises(NotImplementedError):
+        ln_modulate_quantize(wide, sw, sw)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8_e4m3", "fp6_e3m2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bfloat", [0, 16, 32])
+@pytest.mark.parametrize("flush", [False, True])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_k6_matches_plain(cuda, fmt, dtype, bfloat, flush, approximate):
+    x = (3 * _normal((100, 288), 44)).to(dtype)  # ragged rows, a partial tile
+    kw = dict(elem_format=fmt, flush=flush, bfloat=bfloat,
+              approximate=approximate)
+    got = gelu_quantize(x.to(cuda), **kw)
+    want = gelu_quantize_ref(x.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _split_t_operands(qkv, H, Dp):
+    """K2's (B, N, 3*H*D) input as K7's qk_t (2*H*Dp, B, N) and v."""
+    B, N, F = qkv.shape
+    D = F // (3 * H)
+    qk = torch.nn.functional.pad(qkv[..., :2 * H * D].reshape(B, N, 2, H, D),
+                                 (0, Dp - D))
+    qk_t = qk.permute(2, 3, 4, 0, 1).reshape(2 * H * Dp, B, N).contiguous()
+    return qk_t, qkv[..., 2 * H * D:].contiguous()
+
+
+_K7_CASES = [  # (B, N, H, D, k, key_bits, contract)
+    (2, 128, 2, 72, 20, 8, "exact"),
+    (2, 128, 2, 72, 20, 8, "serving"),
+    (2, 256, 2, 32, 20, 32, "exact"),
+    (2, 256, 2, 32, 20, 16, "serving"),
+    (2, 256, 4, 72, 256, 8, "exact"),    # dense branch
+    (2, 256, 4, 72, 256, 8, "serving"),
+    (1, 256, 4, 72, 154, 8, "exact"),
+    (1, 256, 4, 72, 154, 8, "serving"),
+]
+
+
+@pytest.mark.parametrize("case", _K7_CASES)
+@pytest.mark.parametrize("in_dtype,out_dtype",
+                         [(torch.float32, torch.float32),
+                          (torch.bfloat16, torch.bfloat16)])
+def test_k7_matches_plain_and_k2(cuda, case, in_dtype, out_dtype):
+    B, N, H, D, k, kb, contract = case
+    qkv = _normal((B, N, 3 * H * D), 45, in_dtype).to(cuda)
+    qk_t, v = _split_t_operands(qkv, H, -(-D // 32) * 32)
+    kw = dict(k=k, scale=D ** -0.5, key_bits=kb, bfloat=16,
+              contract=contract, out_dtype=out_dtype)
+    got = fused_topk_attention_qkv_t(qk_t, v, H, n_valid=N, **kw)
+    want = fused_topk_attention_qkv_t_ref(qk_t, v, H, n_valid=N, **kw)
+    k2 = fused_topk_attention_qkv(qkv, H, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, k2)  # K2's math on the same values
+
+
+def test_k7_masks_keys_past_n_valid_and_counts_launches(cuda):
+    B, N, H, D = 2, 128, 2, 72
+    qkv = _normal((B, N, 3 * H * D), 46).to(cuda)
+    qkv[:, 100:] = 0  # the padded tokens are zero
+    qk_t, v = _split_t_operands(qkv, H, 96)
+    kw = dict(k=20, scale=D ** -0.5, key_bits=8, bfloat=16, n_valid=100)
+    before = fused_topk_attention_qkv_t.launches
+    got = fused_topk_attention_qkv_t(qk_t, v, H, **kw)
+    assert fused_topk_attention_qkv_t.launches == before + 1
+    assert torch.equal(got, fused_topk_attention_qkv_t_ref(qk_t, v, H, **kw))
+    long = torch.zeros(2 * H * 96, 1, 384, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_topk_attention_qkv_t(long, torch.zeros(1, 384, H * D,
+                                                     device=cuda), H,
+                                   k=20, scale=0.1, n_valid=384)
+    assert fused_topk_attention_qkv_t.launches == before + 1
+
+
 def test_bf16_product_has_f32_output(cuda):
     a = _normal((64, 96), 5, torch.bfloat16)
     b = _normal((48, 96), 6, torch.bfloat16)
@@ -187,16 +296,23 @@ def test_bf16_product_has_f32_output(cuda):
                                atol=1e-5)
 
 
-def test_tiny_sampling_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("opt_ins", [False, True])
+def test_tiny_sampling_on_card_matches_cpu(cuda, opt_ins):
     """The whole slice at a tiny size: kernels on the card against the
-    plain versions on the CPU, same weights and noise."""
-    cfg = DiTConfig(input_size=8, hidden_size=64, depth=2, num_heads=2,
-                    num_classes=10)
+    plain versions on the CPU, same weights and noise; with ``opt_ins``
+    the serving tier with K5, K6 and K7 (N = 256)."""
+    cfg = DiTConfig(input_size=32 if opt_ins else 8, hidden_size=64,
+                    depth=2, num_heads=2, num_classes=10)
     qcfg = DiTQuantConfig(mx_specs=dit_mx_specs(), mx_quant=True,
                           top_k=True, k=6, exclude_blocks=(1,),
                           topk_key_bits=8)
-    z = _normal((2, 4, 8, 8), 7)
-    noise = [_normal((4, 4, 8, 8), 8 + i) for i in range(3)]
+    if opt_ins:
+        qcfg = dataclasses.replace(qcfg, contract="serving",
+                                   fuse_ln_modulate=True, fuse_gelu=True,
+                                   qkv_layout="split_t")
+    side = cfg.input_size
+    z = _normal((2, 4, side, side), 7)
+    noise = [_normal((4, 4, side, side), 8 + i) for i in range(3)]
     outs = []
     for dev in ("cpu", cuda):
         model = init_dit(cfg, torch.Generator().manual_seed(0), dev,

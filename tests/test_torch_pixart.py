@@ -330,8 +330,10 @@ def test_unported_options_raise():
         PixArt(PixArtConfig(**{**CFG_KW, "micro_conds": True}), device="cpu")
     model = PixArt(cfg, device="cpu")
     x, enc, t, _ = map(torch.from_numpy, pixart_inputs(2))
-    with pytest.raises(NotImplementedError, match="K6"):
-        pixart_forward(model, x, enc, t, PixArtQuantConfig(fuse_gelu=True))
+    # fuse_gelu is ported (kernel K6); without MX quantization it is a no-op
+    assert torch.equal(
+        pixart_forward(model, x, enc, t, PixArtQuantConfig(fuse_gelu=True)),
+        pixart_forward(model, x, enc, t, PixArtQuantConfig()))
     with pytest.raises(NotImplementedError, match="ELSA"):
         pixart_forward(model, x, enc, t, PixArtQuantConfig(
             mx_specs=pixart_mx_specs(), **{**QKW, "pred_mode": "ELSA"}))
