@@ -6,8 +6,9 @@
 Needs one CUDA GPU (Hopper: the CUDA kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
-  2. build: K2 and K7 (one source), K3 and K5 from csrc/, one nvcc each,
-     started together (K1 and K6 compile through Triton's JIT)
+  2. build: K2 and K7 (one source), K3 and K4 (one source) and K5 from
+     csrc/, one nvcc each, started together (K1 and K6 compile through
+     Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
      shapes (bf16/f32 in, bfloat 0/16) and at the PixArt sites (f32 in,
      flush, bfloat 0/32)
@@ -16,7 +17,15 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   5. K3 (split q/k/v top-k attention) against its plain version at the
      three PixArt-alpha 256^2 sites at 200 rows (self top-k two_step k=77,
      self dense, cross dense S=120 with a caption-mask bias), both
-     contracts, f32 and bf16 output; then the domain cases at a small batch
+     contracts, f32 and bf16 output; then the domain cases at a small batch.
+     K4 (the query-tiled long-sequence path of the same function) against
+     the same plain version, bit for bit: at the DiT-XL/2 512^2 sites (8
+     rows, N = S = 1024, bf16, top-k k=154 ex_pred key_bits 8 and dense), at
+     PixArt-alpha 1024^2's (2 rows, N = 4096: self top-k two_step k=77 and
+     self dense, cross against 120 caption tokens with a mask bias, dense
+     and top-k k=60; f32 and bf16), all in both contracts, the plain version
+     taken per group of heads; the domain cases at a small batch; and K4
+     against K3 on shapes both take
   6. K5 (LN + modulate + MX quantize), K6 (GELU + MX quantize) and K7
      (split-emission qkv top-k attention) against their plain versions, bit
      for bit: K5 at the DiT site and its domain cases, K6 at the DiT fc2
@@ -25,7 +34,9 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   7. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
      prequantized to bf16), 32 images with CFG (64 rows), 100 DDPM steps,
      serving tier then exact tier; then the same with the fused opt-ins
-     (fuse_ln_modulate, fuse_gelu, qkv_layout="split_t": K5, K6, K7)
+     (fuse_ln_modulate, fuse_gelu, qkv_layout="split_t": K5, K6, K7); then
+     DiT-XL/2 512^2 (N = 1024 tokens: K4 in every block), 4 images with CFG
+     (8 rows), 100 DDPM steps, serving tier then exact tier
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
@@ -61,6 +72,7 @@ F32_INSTR_PER_S = 33.5e12
 
 DIT_STEPS = 100
 DIT_IMAGES = 32
+DIT512_IMAGES = 4  # tools/workload_probe.py dit512_probe
 PIXART_STEPS = 20
 PIXART_PROMPTS = 100  # the reference's batch (SURVEY.md, PixArt-alpha 256^2)
 CAPTION_TOKENS = 120
@@ -105,10 +117,12 @@ def attention_bound(cells, n, s, d, in_bytes, out_bytes, k, key_bits, topk,
     Tensor-core work: the true scores and (top-k) the predictor over every
     (query, key) pair at the true head dim, PV over the k keys a row
     selects (all s when dense; the serving tier may keep more on ties,
-    which stays below the bytes term even at all s).  CUDA-core work: a
-    compare per key per bisection pass, plus max, exp, sum and divide of
-    the softmax, for every pair.  Memory traffic and both kinds of
-    operations can overlap, so the bound is the largest of the three."""
+    which stays below the bytes term even at all s).  CUDA-core work at the
+    top-k sites: finding the k-th key, one pass of one operation per pair
+    for each 8 key bits (a radix histogram), and the softmax's max, exp,
+    sum and divide over the k keys a row keeps; when dense, the softmax
+    over every pair.  Memory traffic and both kinds of operations can
+    overlap, so the bound is the largest of the three."""
     rows = cells * n
     pairs = rows * s
     nbytes = cells * ((n + 2 * s) * d * in_bytes + n * d * out_bytes) \
@@ -116,7 +130,8 @@ def attention_bound(cells, n, s, d, in_bytes, out_bytes, k, key_bits, topk,
     kk = min(k, s)
     t_tc = 1e3 * (2 * pairs * d * (2 if topk else 1)
                   + 2 * rows * kk * d) / BF16_OPS_PER_S
-    t_cc = 1e3 * pairs * ((key_bits if topk else 0) + 4) / F32_INSTR_PER_S
+    select_ops = pairs * -(-key_bits // 8) if topk else 0
+    t_cc = 1e3 * (select_ops + 4 * rows * kk) / F32_INSTR_PER_S
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     bound, by = max((t_bytes, "bytes"), (t_tc, "operations"),
                     (t_cc, "operations"))
@@ -152,6 +167,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mx_quantization_tpu_torch.formats import format_params
     from mx_quantization_tpu_torch.models.dit import (DiT_models,
                                                       DiTQuantConfig, init_dit)
     from mx_quantization_tpu_torch.models.pixart import (PixArtConfig,
@@ -170,10 +186,13 @@ def main():
                                                             sample_pixart)
     K1, K2, K3 = "mx_quantize", "fused_topk_attention_qkv", \
         "fused_topk_attention"
+    K4 = "fused_topk_attention_tiled"
     K5, K6, K7 = "ln_modulate_quantize", "gelu_quantize", \
         "fused_topk_attention_qkv_t"
     wrappers = {K1: mx_quantize, K2: ta.fused_topk_attention_qkv,
-                K3: ta.fused_topk_attention, K5: lnq.ln_modulate_quantize,
+                K3: ta.fused_topk_attention,
+                K4: ta.fused_topk_attention_tiled,
+                K5: lnq.ln_modulate_quantize,
                 K6: gelu_quantize, K7: ta.fused_topk_attention_qkv_t}
 
     # ---- 1. device
@@ -197,7 +216,7 @@ def main():
     # ---- 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = ((ta.SOURCE, ta.K2_DEFINES),
-               (ta.SPLIT_SOURCE, ta.K3_DEFINES),
+               (ta.SPLIT_SOURCE, ta.SPLIT_DEFINES),
                (lnq.SOURCE, lnq.DEFINES))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda sd: build.build(*sd), sources))
@@ -360,6 +379,124 @@ def main():
     del cases, sq, sk, sv, cq, ck, cv, lq, lk, lv, rq, rk, rv, hq, hk, hv
     del fq, fk, fv
 
+    # ---- 5. K4 against the same plain version, bit for bit, the plain
+    # version per group of heads (at (2, 16, 4096, 4096) one f32 score
+    # tensor is 2.1 GB, and the plain version keeps several)
+    k4_err = 0.0
+
+    def check_k4(label, q, keys, values, bias, heads=16, **kw):
+        nonlocal k4_err
+        got = ta.fused_topk_attention_tiled(q, keys, values, bias, **kw)
+        torch.cuda.synchronize()
+        same = True
+        for h0 in range(0, q.shape[1], heads):
+            hs = slice(h0, h0 + heads)
+            want = ta.fused_topk_attention_ref(
+                q[:, hs].contiguous(), keys[:, hs].contiguous(),
+                values[:, hs].contiguous(), bias, **kw)
+            diff = (got[:, hs].float() - want.float()).abs().max().item()
+            k4_err = max(k4_err, diff)
+            same = same and torch.equal(got[:, hs], want)
+            del want
+        print(f"[k4] {label} {kw.get('contract', 'exact')} "
+              f"in={q.dtype} out={kw.get('out_dtype', torch.float32)}: "
+              f"bit-equal {same}", flush=True)
+        if not same or not torch.isfinite(got).all():
+            fail(f"K4 {label} {kw} differs from its plain version")
+
+    H, D = 16, 72
+    # DiT-XL/2 512^2: 4 images with CFG, N = S = 1024, bf16 in and out
+    dq, dk, dv = (randn(2 * DIT512_IMAGES, H, 1024, D, scale=sc,
+                        dtype=torch.bfloat16) for sc in (4.0, 4.0, 1.0))
+    for contract in ("serving", "exact"):
+        kw = dict(scale=D ** -0.5, key_bits=8, bfloat=16, contract=contract,
+                  out_dtype=torch.bfloat16)
+        check_k4("DiT-512 top-k ex_pred k=154", dq, dk, dv, None, k=154,
+                 pred_mode="ex_pred", **kw)
+        check_k4("DiT-512 dense", dq, dk, dv, None, k=1024, approx=False,
+                 **kw)
+    del dq, dk, dv
+    # PixArt-alpha 1024^2: 1 prompt with CFG, N = 4096, S = 4096 or 120
+    pq = randn(2, H, 4096, D, scale=4.0)
+    pk, pv = randn(2, H, 4096, D, scale=4.0), randn(2, H, 4096, D)
+    ck, cv = randn(2, H, CAPTION_TOKENS, D, scale=4.0), \
+        randn(2, H, CAPTION_TOKENS, D)
+    cbias, _ = caption_bias(2, CAPTION_TOKENS, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (pq, pk, pv, ck, cv)]
+        for contract in ("serving", "exact"):
+            kw = dict(scale=D ** -0.5, key_bits=8, flush=True,
+                      contract=contract, out_dtype=dtype)
+            check_k4("PixArt-1024 self top-k two_step k=77", *args[:3], None,
+                     heads=8, k=77, pred_mode="two_step_leading_ones", **kw)
+            check_k4("PixArt-1024 self dense", *args[:3], None, heads=8,
+                     k=4096, approx=False, **kw)
+            check_k4("PixArt-1024 cross dense S=120 bias", args[0],
+                     *args[3:], cbias, k=CAPTION_TOKENS, approx=False, **kw)
+            check_k4("PixArt-1024 cross top-k two_step k=60 bias", args[0],
+                     *args[3:], cbias, k=60,
+                     pred_mode="two_step_leading_ones", **kw)
+        del args
+    del pq, pk, pv, ck, cv
+    # the domain at a small batch: N not a multiple of 32, N = 200 against
+    # S = 4096, key_bits 16 and 32 (32 at S = 4096 takes 8-row tiles),
+    # true-score top-k, the other element formats, subnormal blocks under
+    # flush
+    ebits4, mbits4, emax4, norm4, _ = format_params("int4")
+    ebits8, mbits8, emax8, norm8, _ = format_params("fp8_e4m3")
+    fmt4 = dict(ebits=ebits4, mbits=mbits4, emax=emax4, max_norm=norm4)
+    fmt8 = dict(ebits=ebits8, mbits=mbits8, emax=emax8, max_norm=norm8)
+    aq, ak, av = small(613, 700)
+    nq, nk, nv = small(200, 4096)
+    nbias, _ = caption_bias(b, 4096, dev, shortest=3000)
+    fq, fk, fv = small(640, 640)
+    fk[0, 1, 9, 32:64] = 1e-39
+    fv[1, 2, 64:96, 5] = 2e-39
+    fq[1, 0, 600, :32] = -3e-40
+    cases = [
+        ("N=613 S=700 ex_pred k=154 key_bits 8", (aq, ak, av, None),
+         dict(k=154, pred_mode="ex_pred", key_bits=8)),
+        ("N=613 S=700 true-score top-k key_bits 16", (aq, ak, av, None),
+         dict(k=77, approx=False, key_bits=16)),
+        ("N=200 S=4096 two_step k=154 key_bits 16 bias", (nq, nk, nv, nbias),
+         dict(k=154, pred_mode="two_step_leading_ones", key_bits=16)),
+        ("N=200 S=4096 ex_pred k=77 key_bits 32", (nq, nk, nv, None),
+         dict(k=77, pred_mode="ex_pred", key_bits=32)),
+        ("N=640 int4 two_step k=77", (fq, fk, fv, None),
+         dict(k=77, pred_mode="two_step_leading_ones", **fmt4)),
+        ("N=640 fp8_e4m3 ex_pred k=77 bfloat=16", (fq, fk, fv, None),
+         dict(k=77, pred_mode="ex_pred", bfloat=16, **fmt8)),
+        ("subnormal blocks under flush, dense", (fq, fk, fv, None),
+         dict(k=640, approx=False)),
+    ]
+    for label, args, extra in cases:
+        for contract in ("exact", "serving"):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                kw = dict(pix, contract=contract, out_dtype=out_dtype)
+                kw.update(extra)
+                check_k4(label, *args, **kw)
+    del cases, aq, ak, av, nq, nk, nv, fq, fk, fv
+    # K4 against K3 where both apply (N, S <= 512), bit for bit
+    sq, sk, sv = small(256, 256)
+    cq, ck, cv = small(256, CAPTION_TOKENS)
+    for label, args, extra in (
+            ("N=S=256 ex_pred k=77", (sq, sk, sv, None),
+             dict(k=77, pred_mode="ex_pred", key_bits=8)),
+            ("S=120 bias two_step k=20", (cq, ck, cv, cbias),
+             dict(k=20, pred_mode="two_step_leading_ones"))):
+        for contract in ("exact", "serving"):
+            kw = dict(pix, contract=contract)
+            kw.update(extra)
+            got = ta.fused_topk_attention_tiled(*args, **kw)
+            want = ta.fused_topk_attention(*args, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            print(f"[k4] against K3, {label} {contract}: bit-equal {same}",
+                  flush=True)
+            if not same:
+                fail(f"K4 and K3 differ at {label} {contract}")
+    del sq, sk, sv, cq, ck, cv, got, want
+
     # ---- 6. K5, K6 and K7 against their plain versions, bit for bit
     errs = {K5: 0.0, K6: 0.0, K7: 0.0}
 
@@ -465,7 +602,7 @@ def main():
         for n, w in wrappers.items():
             for site, c in w.sites.items():
                 desc = site[:-1] + (dict(site[-1]),) \
-                    if n in (K2, K3, K7) else site
+                    if n in (K2, K3, K4, K7) else site
                 print(f"[slice] {name} {contract}: {n} at {desc}: {c}")
         return out
 
@@ -550,6 +687,37 @@ def main():
         model, qc, labels, gen, num_steps=2, device=dev), 2)
     del model
 
+    # 7. DiT-XL/2 512^2 (tools/workload_probe.py dit512_probe): N = 1024
+    # tokens, so every block's attention leaves the fused qkv entry for the
+    # split entry and K4 (block 27 dense); per forward K1 114 and K4 28
+    cfg512 = DiT_models["DiT-XL/2"](input_size=64)
+    t0 = time.perf_counter()
+    model = init_dit(cfg512, torch.Generator().manual_seed(0), dev,
+                     randomize_all=True)
+    model, specs = prequantize_weights(model, dit_mx_specs(),
+                                       serve_dtype=torch.bfloat16)
+    print(f"[slice] DiT-XL/2 512^2 random weights, prequantized bf16, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dit512_q = dataclasses.replace(dit_q, mx_specs=specs)
+    labels512 = list(range(DIT512_IMAGES))
+    for contract in ("serving", "exact"):
+        qc = dataclasses.replace(dit512_q, contract=contract)
+        sample_dit(model, qc, labels512, gen, num_steps=2, device=dev)  # warm
+        lat = run_path("DiT-XL/2 512^2", contract, DIT_STEPS,
+                       {K1: 4 * cfg512.depth + 2, K4: cfg512.depth},
+                       DIT512_IMAGES,
+                       lambda: sample_dit(model, qc, labels512, gen,
+                                          num_steps=DIT_STEPS, device=dev))
+        if lat.shape != (DIT512_IMAGES, 4, 64, 64) or \
+                not torch.isfinite(lat).all():
+            fail(f"DiT 512 {contract}: latents not finite / wrong shape")
+        print(f"[slice] DiT-XL/2 512^2 {contract}: latent std "
+              f"{lat.float().std().item():.4g}")
+    qc = dataclasses.replace(dit512_q, contract="serving")
+    profile("DiT-XL/2 512^2", lambda: sample_dit(
+        model, qc, labels512, gen, num_steps=2, device=dev), 2)
+    del model
+
     # 8. PixArt-alpha 256^2
     pcfg = PixArtConfig()  # 256^2: latent 32, 28 layers, 16 heads of 72
     t0 = time.perf_counter()
@@ -628,39 +796,46 @@ def main():
               f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
               f"queued ahead: {queued})", flush=True)
 
-    k3_sites = []
-    for (qs, ks, dtype, bshape, kw), n in sorted(main_sites[K3].items(),
-                                                 key=lambda kv: -kv[1]):
-        kw = dict(kw)
-        q = randn(*qs, scale=4.0, dtype=dtype)
-        kx = randn(*ks, scale=4.0, dtype=dtype)
-        vx = randn(*ks, dtype=dtype)
-        bias = None if bshape is None else caption_bias(
-            bshape[0], bshape[3], dev)[0]
-        (ms, queued), (pms, _) = (
-            time_ms(lambda: ta.fused_topk_attention(q, kx, vx, bias, **kw),
-                    20),
-            time_ms(lambda: ta.fused_topk_attention_ref(q, kx, vx, bias,
-                                                        **kw), 2, warmup=1))
-        b, h, nq, d = qs
-        s = ks[2]
-        topk = kw["k"] < s
-        bound, by, terms = attention_bound(
-            b * h, nq, s, d, q.element_size(), kw["out_dtype"].itemsize,
-            kw["k"], kw["key_bits"], topk,
-            extra_bytes=0 if bias is None else b * s * 4)
-        k3_sites.append(dict(contract=kw["contract"], k=kw["k"],
-                             q_shape=list(qs), k_shape=list(ks),
-                             dtype=str(dtype), bias=bshape is not None,
-                             pred_mode=kw["pred_mode"] if topk and
-                             kw["approx"] else None,
-                             launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
-                             bound_by=by, queued=queued))
-        print(f"[time] K3 {kw['contract']} k={kw['k']} S={s} "
-              f"approx={kw['approx']} bias={bshape is not None} x{n}: "
-              f"{ms:.4f} ms (plain {pms:.2f} ms, bound {bound:.4f} ms by "
-              f"{by}: { {t: round(v, 4) for t, v in terms.items()} }; "
-              f"launches queued ahead: {queued})", flush=True)
+    def split_sites(label, kernel):
+        """Times of K3 or K4 at each call site of the paths."""
+        out = []
+        for (qs, ks, dtype, bshape, kw), n in sorted(
+                main_sites[kernel.__name__].items(), key=lambda kv: -kv[1]):
+            kw = dict(kw)
+            q = randn(*qs, scale=4.0, dtype=dtype)
+            kx = randn(*ks, scale=4.0, dtype=dtype)
+            vx = randn(*ks, dtype=dtype)
+            bias = None if bshape is None else caption_bias(
+                bshape[0], bshape[3], dev)[0]
+            (ms, queued), (pms, _) = (
+                time_ms(lambda: kernel(q, kx, vx, bias, **kw), 20),
+                time_ms(lambda: ta.fused_topk_attention_ref(q, kx, vx, bias,
+                                                            **kw),
+                        2, warmup=1))
+            b, h, nq, d = qs
+            s = ks[2]
+            topk = kw["k"] < s
+            bound, by, terms = attention_bound(
+                b * h, nq, s, d, q.element_size(), kw["out_dtype"].itemsize,
+                kw["k"], kw["key_bits"], topk,
+                extra_bytes=0 if bias is None else b * s * 4)
+            out.append(dict(contract=kw["contract"], k=kw["k"],
+                            q_shape=list(qs), k_shape=list(ks),
+                            dtype=str(dtype), bias=bshape is not None,
+                            pred_mode=kw["pred_mode"] if topk and
+                            kw["approx"] else None,
+                            launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
+                            bound_by=by, queued=queued))
+            print(f"[time] {label} {kw['contract']} k={kw['k']} N={nq} S={s} "
+                  f"approx={kw['approx']} bias={bshape is not None} x{n}: "
+                  f"{ms:.4f} ms (plain {pms:.2f} ms, bound {bound:.4f} ms by "
+                  f"{by}: { {t: round(v, 4) for t, v in terms.items()} }; "
+                  f"launches queued ahead: {queued})", flush=True)
+            del q, kx, vx
+        return out
+
+    k3_sites = split_sites("K3", ta.fused_topk_attention)
+    k4_sites = split_sites("K4", ta.fused_topk_attention_tiled)
 
     k5_sites = []
     for (shape, dtype, *args), n in sorted(main_sites[K5].items(),
@@ -731,7 +906,8 @@ def main():
               f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
               f"queued ahead: {queued})", flush=True)
 
-    k1, k2, k3 = mix(k1_sites), mix(k2_sites), mix(k3_sites)
+    k1, k2, k3, k4 = (mix(k1_sites), mix(k2_sites), mix(k3_sites),
+                      mix(k4_sites))
     k5, k6, k7 = mix(k5_sites), mix(k6_sites), mix(k7_sites)
     kernels = [
         dict(name=K1, route="triton",
@@ -752,6 +928,12 @@ def main():
              launches=main_launches[K3], max_abs_err=k3_err, ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None, sites=k3_sites),
+        dict(name=K4, route="cuda",
+             source="mx_quantization_tpu_torch/csrc/topk_attention_split.cu",
+             replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:654",
+             launches=main_launches[K4], max_abs_err=k4_err, ms=k4["ms"],
+             plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=None, sites=k4_sites),
         dict(name=K5, route="cuda",
              source="mx_quantization_tpu_torch/csrc/ln_modulate_quantize.cu",
              replaces="mx_quantization_tpu/ops/kernels/quantize.py:205",

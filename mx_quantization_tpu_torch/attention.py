@@ -7,8 +7,9 @@ The flow is the reference's
   pred = approx(q) @ approx(k)^T (+ bias),
   attn = softmax over the top-k of pred,  out = MX(attn) @ MX(v),
 all inside one kernel: K2 (``fused_qkv_topk_attention``, self-attention from
-the fused qkv output) or K3 (``topk_attention``, split q/k/v with an
-optional key bias), both in ``ops/kernels/topk_attention.py``.  Where the
+the fused qkv output) or K3 / K4 (``topk_attention``, split q/k/v with an
+optional key bias; K4 where N or S exceeds 512), all in
+``ops/kernels/topk_attention.py``.  Where the
 JAX package would leave its kernels for the XLA emulation path, the port
 raises: the emulation engine is not ported yet (ROADMAP.md).
 """
@@ -21,7 +22,7 @@ import torch
 
 from .formats import format_params
 from .ops.fastquant import fused_eligible
-from .ops.kernels.topk_attention import (MAX_SPLIT_TOKENS, MAX_TOKENS,
+from .ops.kernels.topk_attention import (MAX_TILED_KEYS, MAX_TOKENS,
                                          QKV_GATE_TOKENS, QKV_PRED_MODES,
                                          fused_topk_attention,
                                          fused_topk_attention_qkv)
@@ -55,8 +56,6 @@ _KERNEL_PRED_MODES = ("ex_pred", "two_step_leading_ones", "MXINT4",
 _KERNEL_ELEM_FORMATS = ("int8", "int4", "int2", "fp8_e4m3", "fp8_e5m2",
                         "fp6_e3m2", "fp6_e2m3", "fp4", "fp4_e2m1")
 _KERNEL_BFLOATS = (0, 16, 32)
-# the JAX kernels' longest key sequence (beyond it JAX takes its XLA path)
-_JAX_KERNEL_MAX_KEYS = 4096
 
 
 def _kernel_format_args(mx_specs) -> dict:
@@ -131,12 +130,8 @@ def fused_qkv_topk_attention(qkv: torch.Tensor, num_heads: int, scale: float,
 
 
 def _split_kernel(q, k, v, bias, scale, mx_specs, cfg) -> torch.Tensor:
-    """The split kernel entry (K3) where the JAX package takes its kernel."""
-    N, S = q.shape[-2], k.shape[-2]
-    if max(N, S) > MAX_SPLIT_TOKENS:
-        raise NotImplementedError(
-            f"N={N}, S={S}: sequences over {MAX_SPLIT_TOKENS} tokens take the "
-            "query-tiled kernel K4, which is not ported yet (ROADMAP.md)")
+    """The split kernel entry (K3, or K4 for N or S over 512) where the JAX
+    package takes its kernel."""
     return fused_topk_attention(
         q, k, v, bias, k=cfg.k, scale=scale, block_size=mx_specs.block_size,
         scale_bits=mx_specs.effective_scale_bits(), approx=cfg.approx_flag,
@@ -182,7 +177,7 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # dense (no-top-k) MX attention, the excluded-block / timestep path:
         # the kernel with k = S skips the selection
         if (_kernel_specs_ok(mx_specs, cfg) and bias_ok
-                and S <= _JAX_KERNEL_MAX_KEYS):
+                and S <= MAX_TILED_KEYS):
             dcfg = cfg._replace(top_k=True, approx_flag=False, k=S)
             return _split_kernel(q, k, v, bias, scale, mx_specs, dcfg), None
         _emulation_path(cfg, "unsupported bias shape, fp != 0, S > 4096, or "
@@ -190,10 +185,10 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     if cfg.approx_flag and cfg.pred_mode == "ELSA":
         raise NotImplementedError(
-            "ELSA needs kernel K3's ELSA mode, which is not ported yet "
-            "(ROADMAP.md)")
+            "ELSA needs the ELSA mode of kernels K3 and K4, which is not "
+            "ported yet (ROADMAP.md)")
     if (_kernel_specs_ok(mx_specs, cfg) and bias_ok
-            and S <= _JAX_KERNEL_MAX_KEYS
+            and S <= MAX_TILED_KEYS
             and (cfg.pred_mode in _KERNEL_PRED_MODES or not cfg.approx_flag)):
         return _split_kernel(q, k, v, bias, scale, mx_specs, cfg), None
     _emulation_path(cfg, "sparse_impl, bias shape, fp != 0, S > 4096, "

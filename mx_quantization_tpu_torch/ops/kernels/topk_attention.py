@@ -1,4 +1,4 @@
-"""Kernels K2, K7 and K3: fused MX top-k attention.
+"""Kernels K2, K7, K3 and K4: fused MX top-k attention.
 
 K2 (``csrc/topk_attention_qkv.cu``) takes self-attention straight from the
 fused qkv output; it replaces the TPU kernel
@@ -9,13 +9,19 @@ split-emission qkv projection; it replaces ``fused_topk_attention_qkv_t``
 and equals K2 bit for bit on the same q, k, v values.  K3
 (``csrc/topk_attention_split.cu``) takes split q (B, H, N, D) and k, v
 (B, H, S, D), S != N allowed, with an optional key bias (B, 1, 1, S); it
-replaces the short path of ``fused_topk_attention`` (``_split_impl``).
-Each source's note says what bounds it and how the design answers.
-``fused_topk_attention_qkv``, ``fused_topk_attention_qkv_t`` and
-``fused_topk_attention`` launch their kernel on a CUDA tensor and raise
-where they cannot; only a CPU tensor takes the plain versions
-``fused_topk_attention_qkv_ref``, ``fused_topk_attention_qkv_t_ref`` and
-``fused_topk_attention_ref``.  Each kernel's shape limits are the constants
+replaces the short path of ``fused_topk_attention`` (``_split_impl``, N and
+S <= 512).  K4 (the same source, a second kernel) computes the same
+function for longer sequences (S <= 4096) and replaces ``_split_impl``'s
+query-tiled path; ``fused_topk_attention`` takes K3 or K4 by shape, as
+``_split_impl`` does, and ``fused_topk_attention_tiled`` is K4 at any
+shape, so that K4 can be held to K3 where both apply.  Each source's note
+says what bounds it and how the design answers.
+``fused_topk_attention_qkv``, ``fused_topk_attention_qkv_t``,
+``fused_topk_attention`` and ``fused_topk_attention_tiled`` launch their
+kernel on a CUDA tensor and raise where they cannot; only a CPU tensor
+takes the plain versions ``fused_topk_attention_qkv_ref``,
+``fused_topk_attention_qkv_t_ref`` and ``fused_topk_attention_ref`` (K3's
+and K4's).  Each kernel's shape limits are the constants
 below, which the wrappers, the eligibility checks of ``attention.py`` and
 (through ``nvcc -D``) the CUDA sources all read.
 
@@ -26,15 +32,15 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     is f32-subnormal
   * true scores: f32 sums of the (bf16-exact) products in d order; the
     exact tier rounds them half away to bf16 (bfloat=16), then scales; K3
-    adds the bias
+    and K4 add the bias
   * ex_pred scores: sign * 2^(block exponent) operands (zeros count as +,
     padded d masked), summed per block and the blocks in order
-  * two_step_leading_ones scores (K3): the operand sign * e * (2^l1 +
+  * two_step_leading_ones scores (K3, K4): the operand sign * e * (2^l1 +
     2^l2) / 64 per element (e the block exponent, l1 and l2 the leading
     powers of two of the integer mantissa), cast to bf16, then an f32 sum
     of the products in d order; the cast rounds, so unlike ex_pred the
     blocks' sums are not exact and this order is part of the result
-  * K3 adds the bias to the predictor scores too, before the padded keys
+  * K3 and K4 add the bias to the predictor scores too, before the padded keys
     are masked
   * monotone keys truncated to key_bits; the k-th key by bisection with the
     count of greater keys carried; exact tier: greater keys plus ties
@@ -46,7 +52,7 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     along the keys with the sign-free quantizer; serving: RNE cast to bf16
   * PV summed in key order; the exact tier rounds it half away to bf16;
     the cast to ``out_dtype`` is RNE
-K3 stores its quantized q, k, v and probabilities as bf16, as the TPU
+K3 and K4 store their quantized q, k, v and probabilities as bf16, as the TPU
 kernel does, and its plain version casts them the same way.  Keys and
 tokens are zero-padded to a multiple of 32 and masked; the TPU kernels pad
 to 128, which leaves every value unchanged.
@@ -75,10 +81,15 @@ QKV_GATE_TOKENS = 512
 # K3 stages the keys in chunks: at most MAX_SPLIT_TOKENS queries and keys
 # (the TPU kernel's short path); longer sequences are kernel K4's
 MAX_SPLIT_TOKENS = 512
+# K4 keeps a slot per (query, key) in shared memory: at most MAX_TILED_KEYS
+# keys (the TPU kernel's limit; beyond it JAX takes its XLA path)
+MAX_TILED_KEYS = 4096
 MAX_HEAD_DIM = 128
 K2_DEFINES = (("K2_MAX_TOKENS", MAX_TOKENS), ("MAX_HEAD_DIM", MAX_HEAD_DIM))
 K3_DEFINES = (("K3_MAX_TOKENS", MAX_SPLIT_TOKENS),
               ("MAX_HEAD_DIM", MAX_HEAD_DIM))
+K4_DEFINES = (("K4_MAX_KEYS", MAX_TILED_KEYS),)
+SPLIT_DEFINES = K3_DEFINES + K4_DEFINES  # K3 and K4 share their source
 QKV_PRED_MODES = ("ex_pred",)
 SPLIT_PRED_MODES = ("ex_pred", "two_step_leading_ones")
 _NEG = -3.0e38
@@ -94,7 +105,8 @@ def _check_args(pred_mode, approx, contract, key_bits, block_size,
         where = ("the split entry (kernel K3) serves it"
                  if pred_mode in SPLIT_PRED_MODES else
                  "MXINT4, partial_Q, partial_K, true_ex, threshold_ex and "
-                 "ELSA are K3's remaining modes, not ported yet (ROADMAP.md)")
+                 "ELSA are K3's and K4's remaining modes, not ported yet "
+                 "(ROADMAP.md)")
         raise NotImplementedError(
             f"pred_mode={pred_mode!r}: this kernel serves {modes}; {where}")
     if contract not in ("exact", "serving"):
@@ -332,9 +344,9 @@ def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
                              ebits: int = 0, emax: int = 0,
                              max_norm: float = 0.0,
                              contract: str = "exact") -> torch.Tensor:
-    """Plain PyTorch version of K3, vectorized over (batch, head, query):
-    q (B, H, N, D), k and v (B, H, S, D), bias (B, 1, 1, S) or None ->
-    (B, H, N, D)."""
+    """Plain PyTorch version of K3 and K4, vectorized over (batch, head,
+    query): q (B, H, N, D), k and v (B, H, S, D), bias (B, 1, 1, S) or
+    None -> (B, H, N, D)."""
     _check_args(pred_mode, approx, contract, key_bits, block_size,
                 SPLIT_PRED_MODES)
     relaxed = contract == "serving"
@@ -554,18 +566,80 @@ fused_topk_attention_qkv_t.sites = collections.Counter()
 
 
 # ----------------------------------------------------------------------
-# K3 wrapper
+# K3 and K4 wrappers
 # ----------------------------------------------------------------------
 @functools.cache
 def _split_library() -> ctypes.CDLL:
-    lib = build.load(SPLIT_SOURCE, K3_DEFINES)
-    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib = build.load(SPLIT_SOURCE, SPLIT_DEFINES)
+    i, f, p, ll = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
+        ctypes.c_longlong
     lib.topk_attention_split_smem_bytes.argtypes = [i] * 6
-    lib.topk_attention_split_smem_bytes.restype = ctypes.c_longlong
+    lib.topk_attention_split_smem_bytes.restype = ll
     lib.topk_attention_split.argtypes = [p, p, p, p, p] + [i] * 8 + [
         f] + [i] * 9 + [f, i, p]
-    lib.topk_attention_split.restype = ctypes.c_int
+    lib.topk_attention_split.restype = i
+    lib.topk_attention_tiled_smem_bytes.argtypes = [i] * 7
+    lib.topk_attention_tiled_smem_bytes.restype = ll
+    lib.topk_attention_tiled_scratch_floats.argtypes = [i] * 4
+    lib.topk_attention_tiled_scratch_floats.restype = ll
+    lib.topk_attention_tiled.argtypes = [p] * 6 + [i] * 8 + [f] + [
+        i] * 9 + [f, i, p]
+    lib.topk_attention_tiled.restype = i
     return lib
+
+
+def _split_operands(name, q, k_, v, bias, kw):
+    """Check a CUDA call of K3 or K4; returns (B, H, N, S, D) and the bias
+    as a contiguous (B, S) float32 tensor or None."""
+    _check_args(kw["pred_mode"], kw["approx"], kw["contract"],
+                kw["key_bits"], kw["block_size"], SPLIT_PRED_MODES)
+    tensors = [q, k_, v] + ([] if bias is None else [bias])
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name} runs on CUDA tensors of one device (or on "
+                         f"CPU tensors), not {[str(t.device) for t in tensors]}")
+    if q.dim() != 4 or k_.dim() != 4 or v.shape != k_.shape or \
+            q.shape[:2] != k_.shape[:2] or q.shape[3] != k_.shape[3]:
+        raise ValueError("q must be (B, H, N, D) and k, v (B, H, S, D), got "
+                         f"{tuple(q.shape)}, {tuple(k_.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k_.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of one "
+                        f"dtype, not {q.dtype}, {k_.dtype}, {v.dtype}")
+    if kw["out_dtype"] not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} writes float32 or bfloat16, not "
+                        f"{kw['out_dtype']}")
+    if not (q.is_contiguous() and k_.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous q, k and v")
+    if kw["k"] < 1:
+        raise ValueError(f"k must be >= 1, got {kw['k']}")
+    B, H, N, D = q.shape
+    S = k_.shape[2]
+    if bias is None:
+        return (B, H, N, S, D), None
+    if tuple(bias.shape) != (B, 1, 1, S):
+        raise ValueError(f"bias must be (B, 1, 1, S) = {(B, 1, 1, S)}, "
+                         f"got {tuple(bias.shape)}")
+    return (B, H, N, S, D), bias.reshape(B, S).to(torch.float32).contiguous()
+
+
+def _launch_args(kw):
+    """The trailing launch arguments K3 and K4 share, from the wrapper's
+    keywords: topk, scale, approx, pred_mode, key_bits, relaxed, bfloat16,
+    flush, ebits, mbits, emax, max_norm, scale_bits."""
+    return (int(kw["k"]), float(kw["scale"]), int(kw["approx"]),
+            int(kw["pred_mode"] == "two_step_leading_ones"),
+            int(kw["key_bits"]), int(kw["contract"] == "serving"),
+            int(kw["bfloat"] == 16), int(kw["flush"]), int(kw["ebits"]),
+            int(kw["mbits"]), int(kw["emax"]), float(kw["max_norm"]),
+            int(kw["scale_bits"]))
+
+
+def _count(wrapper, q, k_, bias, kw):
+    wrapper.launches += 1
+    wrapper.sites[(tuple(q.shape), tuple(k_.shape), q.dtype,
+                   None if bias is None else tuple(bias.shape),
+                   tuple(kw.items()))] += 1
 
 
 def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
@@ -580,7 +654,9 @@ def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
     """q (B, H, N, D), k and v (B, H, S, D), optional key bias (B, 1, 1, S)
     -> (B, H, N, D) attention output.
 
-    K3 on CUDA tensors; the plain version on CPU tensors."""
+    On CUDA tensors K3 where N, S <= MAX_SPLIT_TOKENS, else K4 (through
+    ``fused_topk_attention_tiled``), as the TPU kernel takes its short or
+    its query-tiled path; the plain version on CPU tensors."""
     kw = dict(k=k, scale=scale, block_size=block_size, mbits=mbits,
               scale_bits=scale_bits, approx=approx, pred_mode=pred_mode,
               key_bits=key_bits, out_dtype=out_dtype, bfloat=bfloat,
@@ -588,63 +664,81 @@ def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
               contract=contract)
     if q.device.type == "cpu":
         return fused_topk_attention_ref(q, k_, v, bias, **kw)
-    _check_args(pred_mode, approx, contract, key_bits, block_size,
-                SPLIT_PRED_MODES)
-    tensors = [q, k_, v] + ([] if bias is None else [bias])
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("K3 runs on CUDA tensors of one device (or on CPU "
-                         f"tensors), not {[str(t.device) for t in tensors]}")
-    if q.dim() != 4 or k_.dim() != 4 or v.shape != k_.shape or \
-            q.shape[:2] != k_.shape[:2] or q.shape[3] != k_.shape[3]:
-        raise ValueError("q must be (B, H, N, D) and k, v (B, H, S, D), got "
-                         f"{tuple(q.shape)}, {tuple(k_.shape)}, "
-                         f"{tuple(v.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k_.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("K3 takes float32 or bfloat16 q, k, v of one dtype, "
-                        f"not {q.dtype}, {k_.dtype}, {v.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K3 writes float32 or bfloat16, not {out_dtype}")
-    if not (q.is_contiguous() and k_.is_contiguous() and v.is_contiguous()):
-        raise ValueError("K3 takes contiguous q, k and v")
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    B, H, N, D = q.shape
-    S = k_.shape[2]
-    if N > MAX_SPLIT_TOKENS or S > MAX_SPLIT_TOKENS or D > MAX_HEAD_DIM:
+    if max(q.shape[-2], k_.shape[-2]) > MAX_SPLIT_TOKENS:
+        return fused_topk_attention_tiled(q, k_, v, bias, **kw)
+    (B, H, N, S, D), brow = _split_operands("K3", q, k_, v, bias, kw)
+    if D > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"K3 takes N, S <= {MAX_SPLIT_TOKENS} and D <= {MAX_HEAD_DIM} "
-            f"(got N={N}, S={S}, D={D}); longer sequences are the query-tiled "
-            "kernel K4's, not ported yet (ROADMAP.md)")
-    brow = None
-    if bias is not None:
-        if tuple(bias.shape) != (B, 1, 1, S):
-            raise ValueError(f"bias must be (B, 1, 1, S) = {(B, 1, 1, S)}, "
-                             f"got {tuple(bias.shape)}")
-        brow = bias.reshape(B, S).to(torch.float32).contiguous()
-    two_step = int(pred_mode == "two_step_leading_ones")
+            f"K3 takes D <= {MAX_HEAD_DIM} (got D={D}); wider heads are not "
+            "ported (ROADMAP.md)")
+    args = _launch_args(kw)
     lib = _split_library()
-    if lib.topk_attention_split_smem_bytes(N, S, D, int(k), int(approx),
-                                           two_step) == 0:
+    if lib.topk_attention_split_smem_bytes(N, S, D, args[0], args[2],
+                                           args[3]) == 0:
         raise ValueError(f"K3 cannot take N={N}, S={S}, D={D}")
     out = torch.empty(B, H, N, D, dtype=out_dtype, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.topk_attention_split(
             q.data_ptr(), k_.data_ptr(), v.data_ptr(),
             None if brow is None else brow.data_ptr(), out.data_ptr(),
             B, H, N, S, D, int(q.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), int(k), float(scale),
-            int(approx), two_step, int(key_bits),
-            int(contract == "serving"), int(bfloat == 16), int(flush),
-            int(ebits), int(mbits), int(emax), float(max_norm),
-            int(scale_bits), stream)
+            int(out_dtype == torch.bfloat16), *args,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"K3 launch failed with CUDA error {err}")
-    fused_topk_attention.launches += 1
-    fused_topk_attention.sites[
-        (tuple(q.shape), tuple(k_.shape), q.dtype,
-         None if bias is None else tuple(bias.shape), tuple(kw.items()))] += 1
+    _count(fused_topk_attention, q, k_, bias, kw)
+    return out
+
+
+def fused_topk_attention_tiled(q: torch.Tensor, k_: torch.Tensor,
+                               v: torch.Tensor, bias=None, *, k: int,
+                               scale: float, block_size: int = 32,
+                               mbits: int = 8, scale_bits: int = 8,
+                               approx: bool = True,
+                               pred_mode: str = "ex_pred",
+                               key_bits: int = 32, out_dtype=torch.float32,
+                               bfloat: int = 0, flush: bool = False,
+                               ebits: int = 0, emax: int = 0,
+                               max_norm: float = 0.0,
+                               contract: str = "exact") -> torch.Tensor:
+    """``fused_topk_attention``'s function through K4 at any shape it takes
+    (S <= MAX_TILED_KEYS, D <= MAX_HEAD_DIM), short sequences included; the
+    plain version on CPU tensors.  K4 writes each query's scaled true
+    scores to a scratch tensor, (B * H, N padded to 64, S padded to 32)
+    float32, which this wrapper allocates."""
+    kw = dict(k=k, scale=scale, block_size=block_size, mbits=mbits,
+              scale_bits=scale_bits, approx=approx, pred_mode=pred_mode,
+              key_bits=key_bits, out_dtype=out_dtype, bfloat=bfloat,
+              flush=flush, ebits=ebits, emax=emax, max_norm=max_norm,
+              contract=contract)
+    if q.device.type == "cpu":
+        return fused_topk_attention_ref(q, k_, v, bias, **kw)
+    (B, H, N, S, D), brow = _split_operands("K4", q, k_, v, bias, kw)
+    if S > MAX_TILED_KEYS or D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"K4 takes S <= {MAX_TILED_KEYS} and D <= {MAX_HEAD_DIM} (got "
+            f"S={S}, D={D}); beyond {MAX_TILED_KEYS} keys the JAX package "
+            "takes its XLA path, whose port (the emulation engine) is not "
+            "done yet (ROADMAP.md)")
+    args = _launch_args(kw)
+    lib = _split_library()
+    if lib.topk_attention_tiled_smem_bytes(N, S, D, args[0], args[2],
+                                           args[3], args[4]) == 0:
+        raise ValueError(f"K4 cannot take N={N}, S={S}, D={D}")
+    scratch = torch.empty(
+        lib.topk_attention_tiled_scratch_floats(B, H, N, S),
+        dtype=torch.float32, device=q.device)
+    out = torch.empty(B, H, N, D, dtype=out_dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.topk_attention_tiled(
+            q.data_ptr(), k_.data_ptr(), v.data_ptr(),
+            None if brow is None else brow.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), B, H, N, S, D, int(q.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), *args,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"K4 launch failed with CUDA error {err}")
+    _count(fused_topk_attention_tiled, q, k_, bias, kw)
     return out
 
 
@@ -652,3 +746,5 @@ def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
 # shape or None, keyword arguments)
 fused_topk_attention.launches = 0
 fused_topk_attention.sites = collections.Counter()
+fused_topk_attention_tiled.launches = 0
+fused_topk_attention_tiled.sites = collections.Counter()

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Time kernels K3 and K4 (``csrc/topk_attention_split.cu``) of one source
+tree at the call sites of the port's paths, so that two trees can be
+compared within one run on one card.
+
+    python3 mx_quantization_tpu_torch/tools/time_split_sites.py \
+        [--repo DIR] [--build-only]
+
+``--repo`` is the root of the checkout whose ``mx_quantization_tpu_torch``
+is imported (default: the one this file lies in); each checkout builds into
+its own ``_build/``.  Run the trees in separate processes, interleaved (A,
+B, B, A), and compare only numbers from one run.  Sites, with inputs from a
+seeded generator (q and k scaled by 4, as ``chip_smoke.py`` times them):
+  * K3 at PixArt-alpha 256^2's (200 rows, 16 heads, f32 in and out, flush,
+    key_bits 32): self top-k two_step k = 77, self dense, and the cross
+    attention against 120 caption tokens with a mask bias, each tier;
+  * K4, where the tree has it, at DiT-XL/2 512^2's (8 rows, 16 heads,
+    N = S = 1024, bf16 in and out, bfloat 16, key_bits 8): top-k ex_pred
+    k = 154 and dense, each tier.
+Prints the card's name and power limit, the ptxas lines of the build, one
+line per site, and last one JSON object with every time (ms per call,
+CUDA events, calls queued behind a GPU sleep).
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+PIX = dict(scale=72 ** -0.5, block_size=32, mbits=8, scale_bits=8,
+           key_bits=32, out_dtype="float32", bfloat=0, flush=True, ebits=0,
+           emax=0, max_norm=1.984375)
+DIT512 = dict(scale=72 ** -0.5, block_size=32, mbits=8, scale_bits=8,
+              key_bits=8, out_dtype="bfloat16", bfloat=16, flush=False,
+              ebits=0, emax=0, max_norm=1.984375)
+REPS = 30  # timed calls per site
+# (kernel, label, q shape, k shape, dtype, caption bias, keywords)
+SITES = (
+    ("K3", "PixArt-256 self top-k two_step k=77", (200, 16, 256, 72),
+     (200, 16, 256, 72), "float32", False,
+     dict(PIX, k=77, approx=True, pred_mode="two_step_leading_ones")),
+    ("K3", "PixArt-256 self dense", (200, 16, 256, 72), (200, 16, 256, 72),
+     "float32", False, dict(PIX, k=256, approx=False, pred_mode="ex_pred")),
+    ("K3", "PixArt-256 cross dense S=120 bias", (200, 16, 256, 72),
+     (200, 16, 120, 72), "float32", True,
+     dict(PIX, k=120, approx=False, pred_mode="ex_pred")),
+    ("K4", "DiT-512 top-k ex_pred k=154", (8, 16, 1024, 72),
+     (8, 16, 1024, 72), "bfloat16", False,
+     dict(DIT512, k=154, approx=True, pred_mode="ex_pred")),
+    ("K4", "DiT-512 dense", (8, 16, 1024, 72), (8, 16, 1024, 72),
+     "bfloat16", False,
+     dict(DIT512, k=1024, approx=False, pred_mode="ex_pred")),
+)
+
+
+def time_ms(fn, reps, warmup=2):
+    """Device ms per call over ``reps`` calls queued behind a GPU sleep
+    (as ``chip_smoke.py`` times its kernels)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s * reps) + 10 ** 6)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--build-only", action="store_true")
+    args = ap.parse_args()
+    repo = os.path.abspath(args.repo)
+    sys.path.insert(0, repo)
+    import torch
+    from mx_quantization_tpu_torch.ops.kernels import build
+    from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
+    if not os.path.abspath(ta.__file__).startswith(repo + os.sep):
+        raise SystemExit(f"imported {ta.__file__}, not from {repo}")
+    # trees from before K4 name the source's definitions K3_DEFINES
+    defines = getattr(ta, "SPLIT_DEFINES", None) or ta.K3_DEFINES
+    lib = build.build(ta.SPLIT_SOURCE, defines)
+    print(f"[build] {repo}: {lib.name}", flush=True)
+    if args.build_only:
+        return 0
+    if not torch.cuda.is_available():
+        print("time_split_sites: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {smi}")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "spill" in line or "registers" in line or "Function pro" in line:
+            print(f"[build] {line.strip()[:150]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = {"K3": ta.fused_topk_attention,
+               "K4": getattr(ta, "fused_topk_attention_tiled", None)}
+    times = {}
+    for kernel, label, qs, ks, dtype, with_bias, kw in SITES:
+        fn = kernels[kernel]
+        if fn is None:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(0)
+        dt = getattr(torch, dtype)
+
+        def randn(shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=gen, device=dev)
+                    ).to(dt)
+
+        q, kx, vx = randn(qs, 4.0), randn(ks, 4.0), randn(ks)
+        bias = None
+        if with_bias:  # caption masks of 8 .. S valid tokens
+            B, S = ks[0], ks[2]
+            valid = torch.linspace(8, S, B, device=dev).round()
+            mask = (torch.arange(S, device=dev)[None] < valid[:, None])
+            bias = ((~mask).float() * -10000.0)[:, None, None, :]
+        for contract in ("serving", "exact"):
+            call = dict(kw, out_dtype=getattr(torch, kw["out_dtype"]),
+                        contract=contract)
+            ms = time_ms(lambda: fn(q, kx, vx, bias, **call), REPS)
+            times[f"{kernel} {label} {contract}"] = ms
+            print(f"[time] {kernel} {label} {contract}: {ms:.4f} ms",
+                  flush=True)
+        del q, kx, vx
+    print(json.dumps({"repo": repo, "device": smi, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

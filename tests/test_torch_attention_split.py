@@ -33,7 +33,8 @@ from mx_quantization_tpu.ops.kernels.topk_attention import \
 from mx_quantization_tpu_torch.attention import (TopKAttentionConfig,
                                                  topk_attention)
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
-    MAX_SPLIT_TOKENS, fused_topk_attention, fused_topk_attention_ref)
+    MAX_SPLIT_TOKENS, MAX_TILED_KEYS, fused_topk_attention,
+    fused_topk_attention_ref)
 from mx_quantization_tpu_torch.specs import finalize_mx_specs as port_specs
 from mx_quantization_tpu_torch.workloads.pixart import pixart_mx_specs
 from test_torch_attention import check_rows
@@ -207,9 +208,16 @@ def test_dispatch_raises_where_jax_leaves_its_kernels():
         topk_attention(q, k, v, 0.1, specs, _port_cfg(pred_mode="ELSA"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topk_attention(q, k, v, 0.1, specs, _port_cfg(pred_mode="MXINT4"))
+    # past the short path's limit the query-tiled kernel K4 takes over;
+    # past the TPU kernels' key limit JAX leaves them for its XLA path
     long = torch.zeros(1, 1, MAX_SPLIT_TOKENS + 1, D)
-    with pytest.raises(NotImplementedError, match="K4"):
-        topk_attention(long, long, long, 0.1, specs, _port_cfg())
-    with pytest.raises(NotImplementedError, match="K4"):
-        topk_attention(long, long, long, 0.1, specs, _port_cfg(top_k=False))
+    for cfg in (_port_cfg(), _port_cfg(top_k=False)):
+        out, _ = topk_attention(long, long, long, 0.1, specs, cfg)
+        assert out.shape == long.shape
+    longer = torch.zeros(1, 1, MAX_TILED_KEYS + 1, D)
+    with pytest.raises(NotImplementedError, match="emulation"):
+        topk_attention(long, longer, longer, 0.1, specs, _port_cfg())
+    with pytest.raises(NotImplementedError, match="emulation"):
+        topk_attention(long, longer, longer, 0.1, specs,
+                       _port_cfg(top_k=False))
     assert port_specs(PIXART) == specs

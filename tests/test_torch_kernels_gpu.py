@@ -1,6 +1,7 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA;
-K3: split q/k/v top-k attention, CUDA; K5: LN + modulate + MX quantize,
+K3: split q/k/v top-k attention, CUDA; K4: its query-tiled long-sequence
+path, CUDA; K5: LN + modulate + MX quantize,
 CUDA; K6: GELU + MX quantize, Triton; K7: split-emission qkv top-k
 attention, CUDA).
 
@@ -22,9 +23,10 @@ from mx_quantization_tpu_torch.ops.kernels.ln_modulate_quantize import (
 from mx_quantization_tpu_torch.ops.kernels.quantize import (
     gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
-    fused_topk_attention, fused_topk_attention_qkv,
+    MAX_TILED_KEYS, fused_topk_attention, fused_topk_attention_qkv,
     fused_topk_attention_qkv_ref, fused_topk_attention_qkv_t,
-    fused_topk_attention_qkv_t_ref, fused_topk_attention_ref)
+    fused_topk_attention_qkv_t_ref, fused_topk_attention_ref,
+    fused_topk_attention_tiled)
 from mx_quantization_tpu_torch.ops.linear import mm_f32
 from mx_quantization_tpu_torch.workloads.dit import dit_mx_specs, sample_dit
 
@@ -173,15 +175,116 @@ def test_k3_formats_and_subnormal_flush(cuda, bfloat, fmt):
 
 
 def test_k3_counts_launches_and_refuses_k4_shapes(cuda):
+    """K3 launches only where N, S <= 512; a longer call goes to K4 and
+    leaves K3's count alone."""
     q, k, v, _ = _k3_inputs(1, 2, 64, 64, 72, torch.float32, 31, False)
-    before = fused_topk_attention.launches
+    before, before4 = (fused_topk_attention.launches,
+                       fused_topk_attention_tiled.launches)
     fused_topk_attention(q.to(cuda), k.to(cuda), v.to(cuda), k=8,
                          scale=0.125)
     assert fused_topk_attention.launches == before + 1
     long = torch.zeros(1, 1, 600, 72, device=cuda)
-    with pytest.raises(NotImplementedError, match="K4"):
-        fused_topk_attention(long, long, long, k=8, scale=0.125)
+    fused_topk_attention(long, long, long, k=8, scale=0.125)
     assert fused_topk_attention.launches == before + 1
+    assert fused_topk_attention_tiled.launches == before4 + 1
+
+
+_K4_CASES = [  # (B, H, N, S, D, k, key_bits, pred_mode, approx)
+    (1, 2, 640, 640, 72, 77, 8, "ex_pred", True),
+    (1, 2, 640, 640, 72, 77, 32, "two_step_leading_ones", True),
+    (1, 2, 613, 120, 72, 20, 16, "two_step_leading_ones", True),  # N % 32
+    (1, 2, 200, 4096, 72, 154, 8, "ex_pred", True),
+    (1, 2, 100, 4096, 72, 77, 32, "two_step_leading_ones", True),  # 8 rows
+    (1, 2, 530, 700, 72, 50, 16, "ex_pred", False),  # true-score top-k
+    (1, 2, 1024, 1024, 128, 154, 8, "ex_pred", True),
+    (1, 2, 1000, 1000, 72, 1000, 8, "ex_pred", True),  # dense
+    (1, 2, 600, 2048, 72, 2048, 32, "two_step_leading_ones", True),  # dense
+]
+
+
+@pytest.mark.parametrize("case", _K4_CASES)
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("in_dtype,out_dtype",
+                         [(torch.float32, torch.float32),
+                          (torch.bfloat16, torch.bfloat16)])
+def test_k4_matches_plain(cuda, case, contract, with_bias, in_dtype,
+                          out_dtype):
+    B, H, N, S, D, k, kb, pred_mode, approx = case
+    q, kk, v, bias = (None if t is None else t.to(cuda) for t in _k3_inputs(
+        B, H, N, S, D, in_dtype, 41, with_bias))
+    kw = dict(k=k, scale=D ** -0.5, key_bits=kb, pred_mode=pred_mode,
+              approx=approx, contract=contract, out_dtype=out_dtype,
+              flush=True)
+    before = fused_topk_attention_tiled.launches
+    got = fused_topk_attention(q, kk, v, bias, **kw)
+    want = fused_topk_attention_ref(q, kk, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert fused_topk_attention_tiled.launches == before + 1
+    assert got.dtype == out_dtype and torch.isfinite(got).all()
+    assert torch.equal(got, want)  # same arithmetic in the same order
+
+
+@pytest.mark.parametrize("bfloat", [0, 16])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8_e4m3", "fp6_e3m2"])
+def test_k4_formats_and_subnormal_flush(cuda, bfloat, fmt):
+    B, H, N, S, D = 1, 2, 600, 640, 72
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    q, k, v, bias = _k3_inputs(B, H, N, S, D, torch.float32, 51, True)
+    k[0, 0, 5, :32] = 1e-39   # a block of subnormals: flushed to zero
+    v[0, 1, 544:576, 3] = 3e-39
+    q[0, 1, 7, 32:64] = -2e-40
+    kw = dict(k=77, scale=D ** -0.5, key_bits=32, bfloat=bfloat, flush=True,
+              ebits=ebits, mbits=mbits, emax=emax, max_norm=max_norm,
+              pred_mode="two_step_leading_ones")
+    args = [t.to(cuda) for t in (q, k, v, bias)]
+    got = fused_topk_attention(*args, **kw)
+    want = fused_topk_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+_K3_K4_CASES = [  # (N, S, k, pred_mode, approx, with_bias)
+    (256, 256, 77, "ex_pred", True, False),
+    (256, 120, 20, "two_step_leading_ones", True, True),
+    (300, 77, 20, "ex_pred", False, True),
+    (512, 512, 512, "ex_pred", True, False),  # dense
+]
+
+
+@pytest.mark.parametrize("case", _K3_K4_CASES)
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_k3(cuda, case, contract, in_dtype):
+    """On shapes both kernels take, K4 equals K3 bit for bit: the same
+    summation orders, another tiling."""
+    N, S, k, pred_mode, approx, with_bias = case
+    args = [None if t is None else t.to(cuda) for t in _k3_inputs(
+        2, 2, N, S, 72, in_dtype, 61, with_bias)]
+    kw = dict(k=k, scale=72 ** -0.5, key_bits=8, pred_mode=pred_mode,
+              approx=approx, contract=contract, out_dtype=in_dtype,
+              bfloat=16)
+    before3, before4 = (fused_topk_attention.launches,
+                        fused_topk_attention_tiled.launches)
+    got = fused_topk_attention_tiled(*args, **kw)
+    want = fused_topk_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_topk_attention.launches == before3 + 1
+    assert fused_topk_attention_tiled.launches == before4 + 1
+    assert torch.equal(got, want)
+
+
+def test_k4_refuses_what_it_does_not_serve(cuda):
+    q = torch.zeros(1, 1, 600, 72, device=cuda)
+    longer = torch.zeros(1, 1, MAX_TILED_KEYS + 1, 72, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_topk_attention_tiled(q, longer, longer, k=8, scale=0.125)
+    wide = torch.zeros(1, 1, 600, 136, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_topk_attention_tiled(wide, wide, wide, k=8, scale=0.125)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_topk_attention_tiled(q, q, q, k=8, scale=0.125,
+                                   pred_mode="MXINT4")
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4", "fp8_e4m3", "fp4_e2m1"])
@@ -324,3 +427,25 @@ def test_tiny_sampling_on_card_matches_cpu(cuda, opt_ins):
     # MX grid choice: bulk agreement, as the JAX model goldens check
     close = torch.isclose(outs[1], outs[0], rtol=1e-3, atol=1e-3)
     assert close.float().mean() >= 0.99
+
+
+def test_tiny_long_sequence_sampling_on_card_matches_cpu(cuda):
+    """The 512^2 path at a tiny size (N = 1024: K4 in every block), both
+    tiers: the card against the plain versions on the CPU."""
+    cfg = DiTConfig(input_size=64, hidden_size=64, depth=2, num_heads=2,
+                    num_classes=10)
+    z = _normal((2, 4, 64, 64), 17)
+    noise = [_normal((4, 4, 64, 64), 18 + i) for i in range(2)]
+    for contract in ("exact", "serving"):
+        qcfg = DiTQuantConfig(mx_specs=dit_mx_specs(), mx_quant=True,
+                              top_k=True, k=154, exclude_blocks=(1,),
+                              topk_key_bits=8, contract=contract)
+        outs = []
+        for dev in ("cpu", cuda):
+            model = init_dit(cfg, torch.Generator().manual_seed(0), dev,
+                             randomize_all=True)
+            outs.append(sample_dit(model, qcfg, [1, 3], num_steps=2, z=z,
+                                   step_noise=noise, device=dev).cpu())
+        assert torch.isfinite(outs[1]).all()
+        close = torch.isclose(outs[1], outs[0], rtol=1e-3, atol=1e-3)
+        assert close.float().mean() >= 0.99
