@@ -30,9 +30,12 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     keys in 32-key blocks per column; an f32 input at bfloat=16 is first
     rounded to bf16 half away from zero; flush zeroes a block whose maximum
     is f32-subnormal
-  * true scores: f32 sums of the (bf16-exact) products in d order; the
-    exact tier rounds them half away to bf16 (bfloat=16), then scales; K3
-    and K4 add the bias
+  * true scores: K3 and K4 take f32 sums of the (bf16-exact) products in
+    d order; K2 and K7 sum each 32-d block exactly (INT formats: the
+    integer grid points' block sum, multiplied by 2^(eq - (mbits-2)) and
+    then by 2^(ek - (mbits-2)); MXFP: the products in d order) and add the
+    blocks in order; the exact tier rounds them half away to bf16
+    (bfloat=16), then scales; K3 and K4 add the bias
   * ex_pred scores: sign * 2^(block exponent) operands (zeros count as +,
     padded d masked), summed per block and the blocks in order
   * two_step_leading_ones scores (K3, K4): the operand sign * e * (2^l1 +
@@ -46,12 +49,17 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     count of greater keys carried; exact tier: greater keys plus ties
     lowest index first up to k; serving tier: every key >= the k-th; dense
     (k >= number of keys): every valid key
-  * masked softmax (the softmax sum adds keys s = l + 32 j per lane l in j
-    order, then the 32 lanes by an xor butterfly, as the kernels' warps do)
+  * masked softmax (K3 and K4: the softmax sum adds keys s = l + 32 j per
+    lane l in j order, then the 32 lanes by an xor butterfly, as their
+    warps do; K2 and K7: sixteen strided sums of keys m + 16 i, then a
+    halving tree, ``_fragment_sum``)
   * exact tier: attn rounded half away to bf16 (bfloat=16) and MX-quantized
     along the keys with the sign-free quantizer; serving: RNE cast to bf16
-  * PV summed in key order; the exact tier rounds it half away to bf16;
-    the cast to ``out_dtype`` is RNE
+  * PV summed in key order, except K2's and K7's exact tier: per 32-key
+    block exactly (INT: the grid points' block sum times 2^(ep -
+    (mbits-2)), then 2^(ev - (mbits-2)); MXFP: key order within the
+    block), the blocks in order; the exact tier rounds it half away to
+    bf16; the cast to ``out_dtype`` is RNE
 K3 and K4 store their quantized q, k, v and probabilities as bf16, as the TPU
 kernel does, and its plain version casts them the same way.  Keys and
 tokens are zero-padded to a multiple of 32 and masked; the TPU kernels pad
@@ -68,7 +76,8 @@ from typing import Optional
 import torch
 
 from ...formats import FormatParams
-from ..fastquant import bf16_round_half_away, lane_sum, pow2, quantize_blocks
+from ..fastquant import (bf16_round_half_away, lane_sum, pow2, quantize_blocks,
+                         round_half_away)
 from . import build
 
 SOURCE = "topk_attention_qkv.cu"
@@ -157,6 +166,79 @@ def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _pow2_sub(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float32 for integer e, exact down to the subnormal 2^-149
+    (the kernels' ``pow2_sub``)."""
+    return torch.pow(2.0, e.to(torch.float64)).to(torch.float32)
+
+
+def _mx_mantissas(xb: torch.Tensor, fmt, scale_bits: int, flush: bool,
+                  nonneg: bool = False):
+    """The integer grid points q (float32) and shared exponents e (int32,
+    (..., nblocks)) of ``quantize_blocks``' int path on float32 blocks
+    (..., nblocks, 32): its value is q * 2^(e - (mbits-2)); q is 0 where
+    the scale 2^e or its inverse is 0 (the kernels' ``quant_int``)."""
+    _, mbits, emax, _, _ = fmt
+    mb = (xb.contiguous().view(torch.int32) & 0x7FFFFFFF).amax(
+        dim=-1, keepdim=True)
+    if flush:
+        xb = torch.where(mb >= 0x00800000, xb, torch.zeros_like(xb))
+    scale_emax = 2 ** (scale_bits - 1) - 1
+    e = ((mb >> 23) - 127 - emax).clamp(-scale_emax, scale_emax)
+    inv_scale, scale = pow2(-e), pow2(e)
+    half, qmax = float(2 ** (mbits - 2)), float(2 ** (mbits - 1) - 1)
+    s = xb * inv_scale * half
+    if nonneg:
+        q = torch.clamp(torch.floor(s + 0.5), max=qmax)
+    else:
+        q = round_half_away(s).clamp(-qmax, qmax)
+    q = torch.where((scale == 0) | (inv_scale == 0), 0.0, q)
+    return q, e[..., 0]
+
+
+def _block_scaled_dot(am: torch.Tensor, ae: torch.Tensor, bm: torch.Tensor,
+                      be: torch.Tensor, shift: int) -> torch.Tensor:
+    """Blockwise product of integer grid points: am (..., M, nb, 32) with
+    exponents ae (..., M, nb), bm (..., P, nb, 32) with be (..., P, nb) ->
+    (..., M, P).  Each block's sum is exact (an integer below 2^24, as the
+    kernels' int8 mma gives it); in f32 it is multiplied by 2^(ae - shift),
+    then by 2^(be - shift), and the blocks are added in order."""
+    blk = torch.einsum("...mkd,...pkd->...mpk", am.to(torch.float64),
+                       bm.to(torch.float64)).to(torch.float32)
+    pa, pb = _pow2_sub(ae - shift), _pow2_sub(be - shift)
+    out = None
+    for i in range(blk.shape[-1]):
+        term = blk[..., i] * pa[..., :, None, i] * pb[..., None, :, i]
+        out = term if out is None else out + term
+    return out
+
+
+def _blocks_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, nb, 32) and b (..., P, nb, 32) -> (..., M, P): each
+    block's f32 sum in index order (``_dot_in_order``), then the blocks
+    added in order."""
+    out = None
+    for i in range(a.shape[-2]):
+        term = _dot_in_order(a[..., i, :], b[..., i, :].transpose(-1, -2))
+        out = term if out is None else out + term
+    return out
+
+
+def _fragment_sum(e: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a multiple of 16) in K2's order on the mma
+    accumulator layout: sixteen sums of keys m + 16 i, each in i order, then
+    halved in a tree (m + 8, m + 4, m + 2, m + 1).  Lane t of a quad holds
+    m = 8 p + 2 t + e: p and e within the lane, t across the quad.  Returns
+    (..., 1)."""
+    x = e.reshape(*e.shape[:-1], -1, 16)
+    acc = x[..., 0, :]
+    for i in range(1, x.shape[-2]):
+        acc = acc + x[..., i, :]
+    for h in (8, 4, 2, 1):
+        acc = acc[..., :h] + acc[..., h:2 * h]
+    return acc
+
+
 def _ex_pred_operand(vals: torch.Tensor, e: torch.Tensor,
                      d_valid: int) -> torch.Tensor:
     """ex_pred operands +-2^e (zeros count as +) of quantized blocks
@@ -204,9 +286,12 @@ def _two_step_operand(vals: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 def _attention_probs(st: torch.Tensor, s_sel, n_keys: int, *, k: int,
                      key_bits: int, relaxed: bool, bfloat: int, fmt,
-                     scale_bits: int, flush: bool) -> torch.Tensor:
+                     scale_bits: int, flush: bool, row_sum=lane_sum,
+                     requantize: bool = True) -> torch.Tensor:
     """Scaled true scores st (..., Kp) and predictor scores s_sel (None:
-    select by st) -> the attention probabilities that meet v, (..., Kp)."""
+    select by st) -> the attention probabilities that meet v, (..., Kp).
+    ``row_sum`` is the softmax sum's order; without ``requantize`` the
+    exact tier returns them before the MX quantize."""
     Kp = st.shape[-1]
     valid = torch.arange(Kp, device=st.device) < n_keys
     if k >= n_keys:
@@ -224,11 +309,13 @@ def _attention_probs(st: torch.Tensor, s_sel, n_keys: int, *, k: int,
 
     masked = torch.where(sel, st, _NEG)
     ex = torch.exp(masked - masked.amax(-1, keepdim=True))
-    attn = ex / lane_sum(ex)
+    attn = ex / row_sum(ex)
     if relaxed:
         return attn.to(torch.bfloat16).to(torch.float32)
     if bfloat == 16:
         attn = bf16_round_half_away(attn)
+    if not requantize:
+        return attn
     attn, _ = quantize_blocks(attn.reshape(*st.shape[:-1], Kp // 32, 32), fmt,
                               scale_bits, flush, nonneg=True)
     return attn.reshape(st.shape)
@@ -267,12 +354,19 @@ def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
     x = torch.nn.functional.pad(x, (0, Dp - D, 0, Np - N))
     blocks = x[:2].reshape(2, B, H, Np, nb, 32)
     qk, e = quantize_blocks(blocks, fmt, scale_bits, flush)
-    q, kq = qk[0].reshape(B, H, Np, Dp), qk[1].reshape(B, H, Np, Dp)
     vt = x[2, ..., :D].transpose(-1, -2).reshape(B, H, D, Np // 32, 32)
-    v, _ = quantize_blocks(vt, fmt, scale_bits, flush)
-    v = v.reshape(B, H, D, Np).transpose(-1, -2)  # (B, H, Np, D)
-
-    st = _dot_in_order(q[..., :D], kq[..., :D].transpose(-1, -2))
+    int_fmt = ebits == 0
+    shift = mbits - 2
+    if int_fmt:  # the kernels' int8 grid points and exponents
+        qkm, qke = _mx_mantissas(blocks, fmt, scale_bits, flush)
+        st = _block_scaled_dot(qkm[0], qke[0], qkm[1], qke[1], shift)
+        vm, ve = _mx_mantissas(vt, fmt, scale_bits, flush)
+        v = (vm * _pow2_sub(ve - shift)[..., None]).reshape(
+            B, H, D, Np).transpose(-1, -2)  # (B, H, Np, D)
+    else:
+        st = _blocks_in_order(qk[0], qk[1])
+        v, _ = quantize_blocks(vt, fmt, scale_bits, flush)
+        v = v.reshape(B, H, D, Np).transpose(-1, -2)
     if bfloat == 16 and not relaxed:
         st = bf16_round_half_away(st)
     st = st * scale
@@ -283,11 +377,21 @@ def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
         s_sel = _blockwise_scores(a[0], a[1])
     attn = _attention_probs(st, s_sel, n_valid, k=k, key_bits=key_bits,
                             relaxed=relaxed, bfloat=bfloat, fmt=fmt,
-                            scale_bits=scale_bits, flush=flush)
+                            scale_bits=scale_bits, flush=flush,
+                            row_sum=_fragment_sum, requantize=False)
 
-    out = _dot_in_order(attn, v)
-    if bfloat == 16 and not relaxed:
-        out = bf16_round_half_away(out)
+    if relaxed:  # bf16 probabilities: key order
+        out = _dot_in_order(attn, v)
+    else:
+        ab = attn.reshape(B, H, Np, Np // 32, 32)
+        if int_fmt:
+            pm, pe = _mx_mantissas(ab, fmt, scale_bits, flush, nonneg=True)
+            out = _block_scaled_dot(pm, pe, vm, ve, shift)
+        else:
+            pv, _ = quantize_blocks(ab, fmt, scale_bits, flush, nonneg=True)
+            out = _blocks_in_order(pv, v.transpose(-1, -2).reshape(
+                B, H, D, Np // 32, 32))
+        out = bf16_round_half_away(out) if bfloat == 16 else out
     out = out[:, :, :N].permute(0, 2, 1, 3).reshape(B, N, H * D)
     return out.to(out_dtype)
 
@@ -408,7 +512,11 @@ def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
 # ----------------------------------------------------------------------
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = build.load(SOURCE, K2_DEFINES)
+    return bind_qkv_library(build.load(SOURCE, K2_DEFINES))
+
+
+def bind_qkv_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``SOURCE``."""
     lib.topk_attention_qkv_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.topk_attention_qkv_smem_bytes.restype = ctypes.c_longlong
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p

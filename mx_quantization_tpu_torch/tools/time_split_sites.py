@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time kernels K3 and K4 (``csrc/topk_attention_split.cu``) of one source
-tree at the call sites of the port's paths, so that two trees can be
-compared within one run on one card.
+"""Time the attention kernels of one source tree at the call sites of the
+port's paths, so that two trees can be compared within one run on one
+card: K2 and K7 (``csrc/topk_attention_qkv.cu``), K3 and K4
+(``csrc/topk_attention_split.cu``).
 
     python3 mx_quantization_tpu_torch/tools/time_split_sites.py \
-        [--repo DIR] [--build-only]
+        [--repo DIR] [--kernels K2,K7,K3,K4] [--build-only]
 
 ``--repo`` is the root of the checkout whose ``mx_quantization_tpu_torch``
 is imported (default: the one this file lies in); each checkout builds into
@@ -16,7 +17,12 @@ seeded generator (q and k scaled by 4, as ``chip_smoke.py`` times them):
     attention against 120 caption tokens with a mask bias, each tier;
   * K4, where the tree has it, at DiT-XL/2 512^2's (8 rows, 16 heads,
     N = S = 1024, bf16 in and out, bfloat 16, key_bits 8): top-k ex_pred
-    k = 154 and dense, each tier.
+    k = 154 and dense, each tier;
+  * K2 at DiT-XL/2 256^2's (qkv (64, 256, 3456) bf16, 16 heads of 72, bf16
+    out, bfloat 16, key_bits 8): top-k ex_pred k = 154 and dense, each
+    tier; K7 at the same sites from the split-emission operands (qk_t
+    (3072, 64, 256) with each head's rows past 72 zero, v (64, 256, 1152)).
+``--kernels`` picks the kernels (default: all four).
 Prints the card's name and power limit, the ptxas lines of the build, one
 line per site, and last one JSON object with every time (ms per call,
 CUDA events, calls queued behind a GPU sleep).
@@ -35,7 +41,19 @@ PIX = dict(scale=72 ** -0.5, block_size=32, mbits=8, scale_bits=8,
 DIT512 = dict(scale=72 ** -0.5, block_size=32, mbits=8, scale_bits=8,
               key_bits=8, out_dtype="bfloat16", bfloat=16, flush=False,
               ebits=0, emax=0, max_norm=1.984375)
+DIT256 = DIT512  # the same operating point at N = 256
 REPS = 30  # timed calls per site
+# K2 and K7: (kernel, label, qkv shape, heads, keywords)
+QKV_SITES = (
+    ("K2", "DiT-256 top-k ex_pred k=154", (64, 256, 3456), 16,
+     dict(DIT256, k=154, approx=True, pred_mode="ex_pred")),
+    ("K2", "DiT-256 dense", (64, 256, 3456), 16,
+     dict(DIT256, k=256, approx=False, pred_mode="ex_pred")),
+    ("K7", "DiT-256 top-k ex_pred k=154", (64, 256, 3456), 16,
+     dict(DIT256, k=154, approx=True, pred_mode="ex_pred")),
+    ("K7", "DiT-256 dense", (64, 256, 3456), 16,
+     dict(DIT256, k=256, approx=False, pred_mode="ex_pred")),
+)
 # (kernel, label, q shape, k shape, dtype, caption bias, keywords)
 SITES = (
     ("K3", "PixArt-256 self top-k two_step k=77", (200, 16, 256, 72),
@@ -77,12 +95,57 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
+def split_t_operands(qkv, heads, Dp):
+    """The fused (B, N, 3*H*D) qkv as K7's qk_t (2*H*Dp, B, N), each
+    head's rows past D zero, and v (B, N, H*D)."""
+    import torch
+    B, N, F = qkv.shape
+    D = F // (3 * heads)
+    qk = torch.nn.functional.pad(
+        qkv[..., :2 * heads * D].reshape(B, N, 2, heads, D), (0, Dp - D))
+    qk_t = qk.permute(2, 3, 4, 0, 1).reshape(2 * heads * Dp, B, N)
+    return qk_t.contiguous(), qkv[..., 2 * heads * D:].contiguous()
+
+
+def time_qkv_sites(ta, kernels, dev, reps=REPS):
+    """ms per call of K2 and K7 (those in ``kernels``) at QKV_SITES, each
+    tier, through the wrappers of the imported tree."""
+    import torch
+    times = {}
+    for kernel, label, shape, heads, kw in QKV_SITES:
+        if kernel not in kernels:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(0)
+        qkv = torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+        D = shape[2] // (3 * heads)
+        qk_t, v = split_t_operands(qkv, heads, -(-D // 32) * 32)
+        for contract in ("serving", "exact"):
+            call = dict(kw, out_dtype=getattr(torch, kw["out_dtype"]),
+                        contract=contract)
+            if kernel == "K2":
+                def fn():
+                    return ta.fused_topk_attention_qkv(qkv, heads, **call)
+            else:
+                def fn():
+                    return ta.fused_topk_attention_qkv_t(
+                        qk_t, v, heads, n_valid=shape[1], **call)
+            ms = time_ms(fn, reps)
+            times[f"{kernel} {label} {contract}"] = ms
+            print(f"[time] {kernel} {label} {contract}: {ms:.4f} ms",
+                  flush=True)
+        del qkv, qk_t, v
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--kernels", default="K2,K7,K3,K4")
     ap.add_argument("--build-only", action="store_true")
     args = ap.parse_args()
+    chosen = set(args.kernels.split(","))
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
     import torch
@@ -90,10 +153,14 @@ def main():
     from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
     if not os.path.abspath(ta.__file__).startswith(repo + os.sep):
         raise SystemExit(f"imported {ta.__file__}, not from {repo}")
-    # trees from before K4 name the source's definitions K3_DEFINES
-    defines = getattr(ta, "SPLIT_DEFINES", None) or ta.K3_DEFINES
-    lib = build.build(ta.SPLIT_SOURCE, defines)
-    print(f"[build] {repo}: {lib.name}", flush=True)
+    # trees from before K4 name the split source's definitions K3_DEFINES
+    libs = []
+    if chosen & {"K2", "K7"}:
+        libs.append(build.build(ta.SOURCE, ta.K2_DEFINES))
+    if chosen & {"K3", "K4"}:
+        libs.append(build.build(ta.SPLIT_SOURCE, getattr(
+            ta, "SPLIT_DEFINES", None) or ta.K3_DEFINES))
+    print(f"[build] {repo}: {[lib.name for lib in libs]}", flush=True)
     if args.build_only:
         return 0
     if not torch.cuda.is_available():
@@ -104,17 +171,19 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"[device] {smi}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "spill" in line or "registers" in line or "Function pro" in line:
-            print(f"[build] {line.strip()[:150]}")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "spill" in line or "registers" in line or \
+                    "Function pro" in line:
+                print(f"[build] {line.strip()[:150]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = {"K3": ta.fused_topk_attention,
                "K4": getattr(ta, "fused_topk_attention_tiled", None)}
-    times = {}
+    times = time_qkv_sites(ta, chosen, dev)
     for kernel, label, qs, ks, dtype, with_bias, kw in SITES:
         fn = kernels[kernel]
-        if fn is None:
+        if fn is None or kernel not in chosen:
             continue
         gen = torch.Generator(device=dev).manual_seed(0)
         dt = getattr(torch, dtype)

@@ -85,21 +85,51 @@ def test_k2_matches_plain(cuda, case, in_dtype, out_dtype):
     got = fused_topk_attention_qkv(x, H, **kw)
     want = fused_topk_attention_qkv_ref(x, H, **kw)
     torch.cuda.synchronize()
-    # same arithmetic in the same order; the tolerance only covers a
-    # difference between expf builds
-    torch.testing.assert_close(got.float(), want.float(), rtol=2e-5,
-                               atol=2e-5)
+    assert got.dtype == out_dtype and torch.isfinite(got).all()
+    assert torch.equal(got, want)  # same arithmetic in the same order
 
 
-def test_k2_mxfp_format(cuda):
+def _spread_qkv(B, N, H, D, seed, q_scales, k_scales):
+    """qkv whose q and k 32-d blocks are scaled by the given powers of two
+    (one per block), so that their MX exponents lie that far apart."""
+    x = _normal((B, N, 3, H, D), seed)
+    for side, scales in ((0, q_scales), (1, k_scales)):
+        for blk, sc in enumerate(scales):
+            x[:, :, side, :, 32 * blk:32 * (blk + 1)] *= 2.0 ** sc
+    return x.reshape(B, N, 3 * H * D)
+
+
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+@pytest.mark.parametrize("k", [9, 64])
+@pytest.mark.parametrize("scales", [
+    ((-12, 0, 12), (12, -12, 0)),      # blocks 12 binades apart
+    ((-60, 0, 0), (-60, 0, 0)),        # block 0: 2^(eq + ek - 12) < 2^-126
+], ids=["spread", "underflow"])
+def test_k2_block_exponents_spread_and_underflow(cuda, contract, k, scales):
+    """The true score's per-block sums and their power-of-two scales where
+    d order and block order round differently, and where a block pair's
+    scale underflows: bit for bit at f32 output."""
+    B, N, H, D = 2, 64, 2, 72
+    x = _spread_qkv(B, N, H, D, 7, *scales).to(cuda)
+    kw = dict(k=k, scale=D ** -0.5, key_bits=8, bfloat=16, contract=contract)
+    got = fused_topk_attention_qkv(x, H, **kw)
+    want = fused_topk_attention_qkv_ref(x, H, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+def test_k2_mxfp_format(cuda, contract):
     B, N, H, D = 2, 64, 2, 72
     ebits, mbits, emax, max_norm, _ = format_params("fp8_e4m3")
     x = _normal((B, N, 3 * H * D), 3).to(cuda)
     kw = dict(k=9, scale=D ** -0.5, key_bits=8, bfloat=16, ebits=ebits,
-              mbits=mbits, emax=emax, max_norm=max_norm)
+              mbits=mbits, emax=emax, max_norm=max_norm, contract=contract)
     got = fused_topk_attention_qkv(x, H, **kw)
     want = fused_topk_attention_qkv_ref(x, H, **kw)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_k2_counts_launches(cuda):
