@@ -287,8 +287,8 @@ def main():
                      "plain version")
     del qkv, got, want
 
-    # ---- 5. K3 against its plain version: f32 output bit-equal, bf16
-    # output within one bf16 ulp
+    # ---- 5. K3 against its plain version, bit for bit (f32 and bf16
+    # output: the bf16 output is the RNE cast of the same f32 values)
     k3_err = 0.0
 
     def check_k3(label, q, keys, values, bias, **kw):
@@ -300,10 +300,7 @@ def main():
         diff = (g - w).abs()
         k3_err = max(k3_err, diff.max().item())
         eq = (got == want).float().mean().item()
-        if kw.get("out_dtype", torch.float32) == torch.float32:
-            ok = torch.equal(got, want)
-        else:
-            ok = bool((diff <= 2.0 ** -7 * w.abs()).all())  # one ulp
+        ok = torch.equal(got, want)
         print(f"[k3] {label} {kw.get('contract', 'exact')} "
               f"out={kw.get('out_dtype', torch.float32)}: bit-equal share "
               f"{eq:.6f} max |diff| {diff.max().item():.3e}", flush=True)
@@ -329,13 +326,14 @@ def main():
     del q, kx, vx, kc, vc
     # the domain at a small batch: ex_pred, true-score top-k, cross top-k
     # with the bias, N = S = 512, N = 300 with S = 77, bf16 input, a
-    # subnormal block under flush
+    # subnormal block under flush; S = 512 at D = 128 with two_step (the
+    # K side streamed in chunks) and S != N there; the MXFP formats
     b, h = 2, 4
 
-    def small(n, s, dtype=torch.float32):
-        return (randn(b, h, n, D, scale=4.0, dtype=dtype),
-                randn(b, h, s, D, scale=4.0, dtype=dtype),
-                randn(b, h, s, D, dtype=dtype))
+    def small(n, s, dtype=torch.float32, d=D):
+        return (randn(b, h, n, d, scale=4.0, dtype=dtype),
+                randn(b, h, s, d, scale=4.0, dtype=dtype),
+                randn(b, h, s, d, dtype=dtype))
 
     sq, sk, sv = small(256, 256)
     cq, ck, cv = small(256, CAPTION_TOKENS)
@@ -348,6 +346,11 @@ def main():
     fk[0, 1, 9, 32:64] = 1e-39
     fv[1, 2, 64:96, 5] = 2e-39
     fq[1, 0, 4, :32] = -3e-40
+    wq, wk, wv = small(512, 512, d=128)
+    xq, xk, xv = small(320, 512, d=128)
+    xbias, _ = caption_bias(b, 512, dev, shortest=300)
+    ebits8, mbits8, emax8, norm8, _ = format_params("fp8_e4m3")
+    fmt8 = dict(ebits=ebits8, mbits=mbits8, emax=emax8, max_norm=norm8)
     cases = [
         ("ex_pred k=77", (sq, sk, sv, None),
          dict(k=77, pred_mode="ex_pred")),
@@ -367,6 +370,14 @@ def main():
          dict(k=77, pred_mode="ex_pred", bfloat=16, key_bits=8)),
         ("subnormal blocks under flush two_step k=77", (fq, fk, fv, None),
          dict(k=77, pred_mode="two_step_leading_ones")),
+        ("N=S=512 D=128 two_step k=77 (streamed)", (wq, wk, wv, None),
+         dict(k=77, pred_mode="two_step_leading_ones")),
+        ("N=320 S=512 D=128 two_step k=50 bias (streamed)",
+         (xq, xk, xv, xbias), dict(k=50, pred_mode="two_step_leading_ones")),
+        ("cross fp8_e4m3 two_step k=20 bias", (cq, ck, cv, cbias),
+         dict(k=20, pred_mode="two_step_leading_ones", **fmt8)),
+        ("fp8_e4m3 ex_pred k=77 bfloat=16", (sq, sk, sv, None),
+         dict(k=77, pred_mode="ex_pred", bfloat=16, **fmt8)),
     ]
     for label, args, extra in cases:
         for contract in ("exact", "serving"):
@@ -374,8 +385,23 @@ def main():
                 kw = dict(pix, contract=contract, out_dtype=out_dtype)
                 kw.update(extra)
                 check_k3(label, *args, **kw)
+    # K4 against K3 at N = S = 512, bit for bit
+    for label, args, extra in (
+            ("N=S=512 two_step k=77", (lq, lk, lv, None),
+             dict(k=77, pred_mode="two_step_leading_ones")),
+            ("N=S=512 D=128 ex_pred k=77 key_bits 8", (wq, wk, wv, None),
+             dict(k=77, pred_mode="ex_pred", key_bits=8))):
+        for contract in ("exact", "serving"):
+            kw = dict(pix, contract=contract)
+            kw.update(extra)
+            same = torch.equal(ta.fused_topk_attention_tiled(*args, **kw),
+                               ta.fused_topk_attention(*args, **kw))
+            print(f"[k4] against K3, {label} {contract}: bit-equal {same}",
+                  flush=True)
+            if not same:
+                fail(f"K4 and K3 differ at {label} {contract}")
     del cases, sq, sk, sv, cq, ck, cv, lq, lk, lv, rq, rk, rv, hq, hk, hv
-    del fq, fk, fv
+    del fq, fk, fv, wq, wk, wv, xq, xk, xv
 
     # ---- 5. K4 against the same plain version, bit for bit, the plain
     # version per group of heads (at (2, 16, 4096, 4096) one f32 score
@@ -441,9 +467,7 @@ def main():
     # true-score top-k, the other element formats, subnormal blocks under
     # flush
     ebits4, mbits4, emax4, norm4, _ = format_params("int4")
-    ebits8, mbits8, emax8, norm8, _ = format_params("fp8_e4m3")
     fmt4 = dict(ebits=ebits4, mbits=mbits4, emax=emax4, max_norm=norm4)
-    fmt8 = dict(ebits=ebits8, mbits=mbits8, emax=emax8, max_norm=norm8)
     aq, ak, av = small(613, 700)
     nq, nk, nv = small(200, 4096)
     nbias, _ = caption_bias(b, 4096, dev, shortest=3000)

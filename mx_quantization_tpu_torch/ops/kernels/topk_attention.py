@@ -14,8 +14,10 @@ S <= 512).  K4 (the same source, a second kernel) computes the same
 function for longer sequences (S <= 4096) and replaces ``_split_impl``'s
 query-tiled path; ``fused_topk_attention`` takes K3 or K4 by shape, as
 ``_split_impl`` does, and ``fused_topk_attention_tiled`` is K4 at any
-shape, so that K4 can be held to K3 where both apply.  Each source's note
-says what bounds it and how the design answers.
+shape, so that K4 can be held to K3 where both apply.  Both quantize each
+(row, head) cell's K side once, in a pre-pass of the same call, into a
+workspace their wrapper allocates.  Each source's note says what bounds it
+and how the design answers.
 ``fused_topk_attention_qkv``, ``fused_topk_attention_qkv_t``,
 ``fused_topk_attention`` and ``fused_topk_attention_tiled`` launch their
 kernel on a CUDA tensor and raise where they cannot; only a CPU tensor
@@ -30,38 +32,40 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     keys in 32-key blocks per column; an f32 input at bfloat=16 is first
     rounded to bf16 half away from zero; flush zeroes a block whose maximum
     is f32-subnormal
-  * true scores: K3 and K4 take f32 sums of the (bf16-exact) products in
-    d order; K2 and K7 sum each 32-d block exactly (INT formats: the
-    integer grid points' block sum, multiplied by 2^(eq - (mbits-2)) and
-    then by 2^(ek - (mbits-2)); MXFP: the products in d order) and add the
-    blocks in order; the exact tier rounds them half away to bf16
-    (bfloat=16), then scales; K3 and K4 add the bias
+  * true scores: each 32-d block summed exactly (INT formats: the integer
+    grid points' block sum, multiplied by 2^(eq - (mbits-2)) and then by
+    2^(ek - (mbits-2)); MXFP: the products in d order) and the blocks added
+    in order; the exact tier rounds them half away to bf16 (bfloat=16),
+    then scales; K3 and K4 add the bias
   * ex_pred scores: sign * 2^(block exponent) operands (zeros count as +,
     padded d masked), summed per block and the blocks in order
   * two_step_leading_ones scores (K3, K4): the operand sign * e * (2^l1 +
     2^l2) / 64 per element (e the block exponent, l1 and l2 the leading
-    powers of two of the integer mantissa), cast to bf16, then an f32 sum
-    of the products in d order; the cast rounds, so unlike ex_pred the
-    blocks' sums are not exact and this order is part of the result
+    powers of two of the integer mantissa), cast to bf16; on the int grids
+    that is n / 64 for an integer |n| <= 12288, so the dot product over
+    every d is taken exactly and rounded to f32 once (the kernels: byte
+    planes of n in int8 mma, combined in int64); MXFP: the products in d
+    order per block, the blocks in order
   * K3 and K4 add the bias to the predictor scores too, before the padded keys
     are masked
-  * monotone keys truncated to key_bits; the k-th key by bisection with the
-    count of greater keys carried; exact tier: greater keys plus ties
-    lowest index first up to k; serving tier: every key >= the k-th; dense
-    (k >= number of keys): every valid key
-  * masked softmax (K3 and K4: the softmax sum adds keys s = l + 32 j per
-    lane l in j order, then the 32 lanes by an xor butterfly, as their
-    warps do; K2 and K7: sixteen strided sums of keys m + 16 i, then a
-    halving tree, ``_fragment_sum``)
+  * monotone keys truncated to key_bits; the k-th key and the count of
+    greater keys (the plain versions and K2 by bisection, K3 and K4 by a
+    radix select of 8-bit digits: the same key); exact tier: greater keys
+    plus ties lowest index first up to k; serving tier: every key >= the
+    k-th; dense (k >= number of keys): every valid key
+  * masked softmax (K3 and K4: the softmax sum takes 32 strided sums of
+    keys m + 32 i in i order, then halves them in a tree, ``lane_sum``;
+    K2 and K7: sixteen strided sums of keys m + 16 i, then a halving tree,
+    ``_fragment_sum``)
   * exact tier: attn rounded half away to bf16 (bfloat=16) and MX-quantized
     along the keys with the sign-free quantizer; serving: RNE cast to bf16
-  * PV summed in key order, except K2's and K7's exact tier: per 32-key
-    block exactly (INT: the grid points' block sum times 2^(ep -
-    (mbits-2)), then 2^(ev - (mbits-2)); MXFP: key order within the
-    block), the blocks in order; the exact tier rounds it half away to
-    bf16; the cast to ``out_dtype`` is RNE
-K3 and K4 store their quantized q, k, v and probabilities as bf16, as the TPU
-kernel does, and its plain version casts them the same way.  Keys and
+  * PV: the serving tier in key order; the exact tier per 32-key block
+    exactly (INT: the grid points' block sum times 2^(ep - (mbits-2)),
+    then 2^(ev - (mbits-2)); MXFP: key order within the block), the blocks
+    in order, then rounded half away to bf16 (bfloat=16); the cast to
+    ``out_dtype`` is RNE
+The quantized values are kept as bf16 (exact on the int grids), as the TPU
+kernels store them, and the plain versions cast them the same way.  Keys and
 tokens are zero-padded to a multiple of 32 and masked; the TPU kernels pad
 to 128, which leaves every value unchanged.
 """
@@ -423,18 +427,68 @@ def fused_topk_attention_qkv_t_ref(qk_t: torch.Tensor, v: torch.Tensor,
                                         n_valid=n_valid, **kw)
 
 
-def _split_side(x: torch.Tensor, n_pad: int, Dp: int, fmt, scale_bits: int,
-                flush: bool, bfloat: int):
-    """(B, H, n, D) -> quantized blocks along D (B, H, n_pad, nb, 32),
-    stored as bf16, and their predictor exponents (B, H, n_pad, nb, 1)."""
+def _split_blocks(x: torch.Tensor, n_pad: int, Dp: int,
+                  bfloat: int) -> torch.Tensor:
+    """(B, H, n, D) -> float32 blocks along D (B, H, n_pad, nb, 32), zero
+    padded, rounded half away to bf16 first where bfloat=16."""
     x32 = x.to(torch.float32)
     if bfloat == 16 and x.dtype != torch.bfloat16:
         x32 = bf16_round_half_away(x32)
     x32 = torch.nn.functional.pad(x32, (0, Dp - x.shape[-1],
                                         0, n_pad - x.shape[-2]))
-    vals, e = quantize_blocks(x32.reshape(*x32.shape[:-1], Dp // 32, 32), fmt,
-                              scale_bits, flush)
-    return vals.to(torch.bfloat16).to(torch.float32), e
+    return x32.reshape(*x32.shape[:-1], Dp // 32, 32)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, nb, 32) @ b (..., P, nb, 32)^T over every d, in float64
+    (exact: the operands are n / 64 with |n| < 2^14 integers, so every
+    product and partial sum is a multiple of 2^-12 below 2^23), cast to
+    float32 once (the kernels' int8 byte-plane products in int64)."""
+    flat = a.shape[:-2] + (-1,)
+    return torch.matmul(a.reshape(flat).double(), b.reshape(
+        b.shape[:-2] + (-1,)).double().transpose(-1, -2)).to(torch.float32)
+
+
+def _split_score_sums(q: torch.Tensor, k_: torch.Tensor, fmt,
+                      scale_bits: int, flush: bool, bfloat: int,
+                      pred_mode: Optional[str]):
+    """K3's and K4's true scores and (``pred_mode`` not None) predictor
+    scores of q (B, H, N, D) against k (B, H, S, D), before the exact
+    tier's round, the scale and the bias: (B, H, N, S padded to 32) float32
+    each, the predictor's None without a predictor.  The true score sums
+    each 32-d block exactly and the blocks in order (INT formats:
+    ``_block_scaled_dot``; MXFP: ``_blocks_in_order``); two_step's
+    predictor is one exact dot rounded once (INT: ``_exact_int_dot``;
+    MXFP: ``_blocks_in_order``); ex_pred's sums blocks in order."""
+    N, D = q.shape[-2:]
+    Sp = _round_up(k_.shape[-2], 32)
+    Dp = _round_up(max(D, 8), 32)
+    int_fmt = fmt[0] == 0
+    qb = _split_blocks(q, N, Dp, bfloat)
+    kb = _split_blocks(k_, Sp, Dp, bfloat)
+    # the kernels stage the quantized values as bf16 (exact on the int
+    # grids; an MXFP value below bf16's 2^-133 rounds)
+    qv, qe = quantize_blocks(qb, fmt, scale_bits, flush)
+    kv, ke = quantize_blocks(kb, fmt, scale_bits, flush)
+    qv, kv = _bf16(qv), _bf16(kv)
+    if int_fmt:  # the kernels' int8 grid points and exponents
+        qm, qme = _mx_mantissas(qb, fmt, scale_bits, flush)
+        km, kme = _mx_mantissas(kb, fmt, scale_bits, flush)
+        st = _block_scaled_dot(qm, qme, km, kme, fmt[1] - 2)
+    else:
+        st = _blocks_in_order(qv, kv)
+    s_sel = None
+    if pred_mode == "two_step_leading_ones":
+        aq, ak = _two_step_operand(qv, qe), _two_step_operand(kv, ke)
+        s_sel = (_exact_int_dot if int_fmt else _blocks_in_order)(aq, ak)
+    elif pred_mode is not None:
+        s_sel = _blockwise_scores(_ex_pred_operand(qv, qe, D),
+                                  _ex_pred_operand(kv, ke, D))
+    return st, s_sel
 
 
 def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
@@ -458,52 +512,50 @@ def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
     B, H, N, D = q.shape
     S = k_.shape[2]
     Sp = _round_up(S, 32)
-    Dp = _round_up(max(D, 8), 32)
-
-    qv, qe = _split_side(q, N, Dp, fmt, scale_bits, flush, bfloat)
-    kv, ke = _split_side(k_, Sp, Dp, fmt, scale_bits, flush, bfloat)
+    int_fmt = ebits == 0
+    shift = mbits - 2
+    pred = pred_mode if approx and k < S else None
+    st, s_sel = _split_score_sums(q, k_, fmt, scale_bits, flush, bfloat, pred)
     v32 = v.to(torch.float32)
     if bfloat == 16 and v.dtype != torch.bfloat16:
         v32 = bf16_round_half_away(v32)
-    vt = torch.nn.functional.pad(v32, (0, 0, 0, Sp - S)).transpose(-1, -2)
-    vq, _ = quantize_blocks(vt.reshape(B, H, D, Sp // 32, 32), fmt,
-                            scale_bits, flush)
-    vq = vq.to(torch.bfloat16).to(torch.float32).reshape(B, H, D, Sp
-                                                         ).transpose(-1, -2)
-
-    flat = (B, H, -1, Dp)
-    st = _dot_in_order(qv.reshape(flat)[..., :D],
-                       kv.reshape(flat)[..., :D].transpose(-1, -2))
+    vt = torch.nn.functional.pad(v32, (0, 0, 0, Sp - S)).transpose(
+        -1, -2).reshape(B, H, D, Sp // 32, 32)
+    if int_fmt:  # the kernels' int8 grid points and exponents
+        vm, ve = _mx_mantissas(vt, fmt, scale_bits, flush)
+        vq = (vm * _pow2_sub(ve - shift)[..., None]).reshape(
+            B, H, D, Sp).transpose(-1, -2)  # (B, H, Sp, D)
+    else:
+        vq, _ = quantize_blocks(vt, fmt, scale_bits, flush)
+        vq = _bf16(vq).reshape(B, H, D, Sp).transpose(-1, -2)
     if bfloat == 16 and not relaxed:
         st = bf16_round_half_away(st)
     st = st * scale
-    brow = None
     if bias is not None:
         if tuple(bias.shape) != (B, 1, 1, S):
             raise ValueError(f"bias must be (B, 1, 1, S) = {(B, 1, 1, S)}, "
                              f"got {tuple(bias.shape)}")
         brow = torch.nn.functional.pad(bias.to(torch.float32), (0, Sp - S))
         st = st + brow
-
-    s_sel = None
-    if approx and k < S:
-        if pred_mode == "two_step_leading_ones":
-            aq = _two_step_operand(qv, qe).reshape(flat)[..., :D]
-            ak = _two_step_operand(kv, ke).reshape(flat)[..., :D]
-            s_sel = _dot_in_order(aq, ak.transpose(-1, -2))
-        else:
-            s_sel = _blockwise_scores(_ex_pred_operand(qv, qe, D),
-                                      _ex_pred_operand(kv, ke, D))
-        if brow is not None:
+        if s_sel is not None:
             s_sel = s_sel + brow
     attn = _attention_probs(st, s_sel, S, k=k, key_bits=key_bits,
                             relaxed=relaxed, bfloat=bfloat, fmt=fmt,
-                            scale_bits=scale_bits, flush=flush)
-    attn = attn.to(torch.bfloat16).to(torch.float32)
+                            scale_bits=scale_bits, flush=flush,
+                            requantize=False)
 
-    out = _dot_in_order(attn, vq)
-    if bfloat == 16 and not relaxed:
-        out = bf16_round_half_away(out)
+    if relaxed:  # bf16 probabilities: key order
+        out = _dot_in_order(attn, vq)
+    else:
+        ab = attn.reshape(B, H, N, Sp // 32, 32)
+        if int_fmt:
+            pm, pe = _mx_mantissas(ab, fmt, scale_bits, flush, nonneg=True)
+            out = _block_scaled_dot(pm, pe, vm, ve, shift)
+        else:
+            pv, _ = quantize_blocks(ab, fmt, scale_bits, flush, nonneg=True)
+            out = _blocks_in_order(_bf16(pv), vq.transpose(-1, -2).reshape(
+                B, H, D, Sp // 32, 32))
+        out = bf16_round_half_away(out) if bfloat == 16 else out
     return out.to(out_dtype)
 
 
@@ -678,21 +730,20 @@ fused_topk_attention_qkv_t.sites = collections.Counter()
 # ----------------------------------------------------------------------
 @functools.cache
 def _split_library() -> ctypes.CDLL:
-    lib = build.load(SPLIT_SOURCE, SPLIT_DEFINES)
+    return bind_split_library(build.load(SPLIT_SOURCE, SPLIT_DEFINES))
+
+
+def bind_split_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``SPLIT_SOURCE``."""
     i, f, p, ll = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
         ctypes.c_longlong
-    lib.topk_attention_split_smem_bytes.argtypes = [i] * 6
+    lib.topk_attention_split_smem_bytes.argtypes = [i] * 10
     lib.topk_attention_split_smem_bytes.restype = ll
-    lib.topk_attention_split.argtypes = [p, p, p, p, p] + [i] * 8 + [
-        f] + [i] * 9 + [f, i, p]
+    lib.topk_attention_split_workspace_bytes.argtypes = [i] * 9
+    lib.topk_attention_split_workspace_bytes.restype = ll
+    lib.topk_attention_split.argtypes = [p] * 6 + [i] * 8 + [f] + [
+        i] * 9 + [f, i, i, p]
     lib.topk_attention_split.restype = i
-    lib.topk_attention_tiled_smem_bytes.argtypes = [i] * 7
-    lib.topk_attention_tiled_smem_bytes.restype = ll
-    lib.topk_attention_tiled_scratch_floats.argtypes = [i] * 4
-    lib.topk_attention_tiled_scratch_floats.restype = ll
-    lib.topk_attention_tiled.argtypes = [p] * 6 + [i] * 8 + [f] + [
-        i] * 9 + [f, i, p]
-    lib.topk_attention_tiled.restype = i
     return lib
 
 
@@ -774,27 +825,44 @@ def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
         return fused_topk_attention_ref(q, k_, v, bias, **kw)
     if max(q.shape[-2], k_.shape[-2]) > MAX_SPLIT_TOKENS:
         return fused_topk_attention_tiled(q, k_, v, bias, **kw)
-    (B, H, N, S, D), brow = _split_operands("K3", q, k_, v, bias, kw)
-    if D > MAX_HEAD_DIM:
+    return _launch_split("K3", fused_topk_attention, q, k_, v, bias, kw)
+
+
+def _launch_split(name, wrapper, q, k_, v, bias, kw):
+    """Check and launch K3 (``name`` "K3") or K4 ("K4"): the pre-pass that
+    quantizes each (row, head) cell's K side once into a workspace this
+    function allocates, then the attention kernel."""
+    tiled = int(name == "K4")
+    (B, H, N, S, D), brow = _split_operands(name, q, k_, v, bias, kw)
+    if tiled and S > MAX_TILED_KEYS or D > MAX_HEAD_DIM:
         raise NotImplementedError(
+            f"K4 takes S <= {MAX_TILED_KEYS} and D <= {MAX_HEAD_DIM} (got "
+            f"S={S}, D={D}); beyond {MAX_TILED_KEYS} keys the JAX package "
+            "takes its XLA path, whose port (the emulation engine) is not "
+            "done yet (ROADMAP.md)" if tiled else
             f"K3 takes D <= {MAX_HEAD_DIM} (got D={D}); wider heads are not "
             "ported (ROADMAP.md)")
     args = _launch_args(kw)
+    topk, approx, pred = args[0], args[2], args[3]
     lib = _split_library()
-    if lib.topk_attention_split_smem_bytes(N, S, D, args[0], args[2],
-                                           args[3]) == 0:
-        raise ValueError(f"K3 cannot take N={N}, S={S}, D={D}")
-    out = torch.empty(B, H, N, D, dtype=out_dtype, device=q.device)
+    if lib.topk_attention_split_smem_bytes(
+            N, S, D, topk, approx, pred, args[4], args[5], args[8],
+            tiled) == 0:
+        raise ValueError(f"{name} cannot take N={N}, S={S}, D={D}")
+    ws = torch.empty(lib.topk_attention_split_workspace_bytes(
+        B, H, S, D, topk, approx, pred, args[5], args[8]), dtype=torch.uint8,
+        device=q.device)
+    out = torch.empty(B, H, N, D, dtype=kw["out_dtype"], device=q.device)
     with torch.cuda.device(q.device):
         err = lib.topk_attention_split(
             q.data_ptr(), k_.data_ptr(), v.data_ptr(),
-            None if brow is None else brow.data_ptr(), out.data_ptr(),
-            B, H, N, S, D, int(q.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), *args,
+            None if brow is None else brow.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), B, H, N, S, D, int(q.dtype == torch.bfloat16),
+            int(kw["out_dtype"] == torch.bfloat16), *args, tiled,
             torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"K3 launch failed with CUDA error {err}")
-    _count(fused_topk_attention, q, k_, bias, kw)
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    _count(wrapper, q, k_, bias, kw)
     return out
 
 
@@ -811,9 +879,8 @@ def fused_topk_attention_tiled(q: torch.Tensor, k_: torch.Tensor,
                                contract: str = "exact") -> torch.Tensor:
     """``fused_topk_attention``'s function through K4 at any shape it takes
     (S <= MAX_TILED_KEYS, D <= MAX_HEAD_DIM), short sequences included; the
-    plain version on CPU tensors.  K4 writes each query's scaled true
-    scores to a scratch tensor, (B * H, N padded to 64, S padded to 32)
-    float32, which this wrapper allocates."""
+    plain version on CPU tensors.  K4 streams each cell's quantized K side
+    from the workspace in key chunks, a block per group of query tiles."""
     kw = dict(k=k, scale=scale, block_size=block_size, mbits=mbits,
               scale_bits=scale_bits, approx=approx, pred_mode=pred_mode,
               key_bits=key_bits, out_dtype=out_dtype, bfloat=bfloat,
@@ -821,33 +888,8 @@ def fused_topk_attention_tiled(q: torch.Tensor, k_: torch.Tensor,
               contract=contract)
     if q.device.type == "cpu":
         return fused_topk_attention_ref(q, k_, v, bias, **kw)
-    (B, H, N, S, D), brow = _split_operands("K4", q, k_, v, bias, kw)
-    if S > MAX_TILED_KEYS or D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"K4 takes S <= {MAX_TILED_KEYS} and D <= {MAX_HEAD_DIM} (got "
-            f"S={S}, D={D}); beyond {MAX_TILED_KEYS} keys the JAX package "
-            "takes its XLA path, whose port (the emulation engine) is not "
-            "done yet (ROADMAP.md)")
-    args = _launch_args(kw)
-    lib = _split_library()
-    if lib.topk_attention_tiled_smem_bytes(N, S, D, args[0], args[2],
-                                           args[3], args[4]) == 0:
-        raise ValueError(f"K4 cannot take N={N}, S={S}, D={D}")
-    scratch = torch.empty(
-        lib.topk_attention_tiled_scratch_floats(B, H, N, S),
-        dtype=torch.float32, device=q.device)
-    out = torch.empty(B, H, N, D, dtype=out_dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.topk_attention_tiled(
-            q.data_ptr(), k_.data_ptr(), v.data_ptr(),
-            None if brow is None else brow.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), B, H, N, S, D, int(q.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), *args,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"K4 launch failed with CUDA error {err}")
-    _count(fused_topk_attention_tiled, q, k_, bias, kw)
-    return out
+    return _launch_split("K4", fused_topk_attention_tiled, q, k_, v, bias,
+                         kw)
 
 
 # launches, and launches per call site: (q shape, k shape, dtype, bias

@@ -138,6 +138,42 @@ def time_qkv_sites(ta, kernels, dev, reps=REPS):
     return times
 
 
+def time_split(ta, kernels, dev, reps=REPS):
+    """ms per call of K3 and K4 (those in ``kernels``) at SITES, each tier,
+    through the wrappers of the imported tree."""
+    import torch
+    fns = {"K3": ta.fused_topk_attention,
+           "K4": getattr(ta, "fused_topk_attention_tiled", None)}
+    times = {}
+    for kernel, label, qs, ks, dtype, with_bias, kw in SITES:
+        fn = fns[kernel]
+        if fn is None or kernel not in kernels:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(0)
+        dt = getattr(torch, dtype)
+
+        def randn(shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=gen, device=dev)
+                    ).to(dt)
+
+        q, kx, vx = randn(qs, 4.0), randn(ks, 4.0), randn(ks)
+        bias = None
+        if with_bias:  # caption masks of 8 .. S valid tokens
+            B, S = ks[0], ks[2]
+            valid = torch.linspace(8, S, B, device=dev).round()
+            mask = (torch.arange(S, device=dev)[None] < valid[:, None])
+            bias = ((~mask).float() * -10000.0)[:, None, None, :]
+        for contract in ("serving", "exact"):
+            call = dict(kw, out_dtype=getattr(torch, kw["out_dtype"]),
+                        contract=contract)
+            ms = time_ms(lambda: fn(q, kx, vx, bias, **call), reps)
+            times[f"{kernel} {label} {contract}"] = ms
+            print(f"[time] {kernel} {label} {contract}: {ms:.4f} ms",
+                  flush=True)
+        del q, kx, vx
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -178,35 +214,8 @@ def main():
                 print(f"[build] {line.strip()[:150]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = {"K3": ta.fused_topk_attention,
-               "K4": getattr(ta, "fused_topk_attention_tiled", None)}
     times = time_qkv_sites(ta, chosen, dev)
-    for kernel, label, qs, ks, dtype, with_bias, kw in SITES:
-        fn = kernels[kernel]
-        if fn is None or kernel not in chosen:
-            continue
-        gen = torch.Generator(device=dev).manual_seed(0)
-        dt = getattr(torch, dtype)
-
-        def randn(shape, scale=1.0):
-            return (scale * torch.randn(*shape, generator=gen, device=dev)
-                    ).to(dt)
-
-        q, kx, vx = randn(qs, 4.0), randn(ks, 4.0), randn(ks)
-        bias = None
-        if with_bias:  # caption masks of 8 .. S valid tokens
-            B, S = ks[0], ks[2]
-            valid = torch.linspace(8, S, B, device=dev).round()
-            mask = (torch.arange(S, device=dev)[None] < valid[:, None])
-            bias = ((~mask).float() * -10000.0)[:, None, None, :]
-        for contract in ("serving", "exact"):
-            call = dict(kw, out_dtype=getattr(torch, kw["out_dtype"]),
-                        contract=contract)
-            ms = time_ms(lambda: fn(q, kx, vx, bias, **call), REPS)
-            times[f"{kernel} {label} {contract}"] = ms
-            print(f"[time] {kernel} {label} {contract}: {ms:.4f} ms",
-                  flush=True)
-        del q, kx, vx
+    times.update(time_split(ta, chosen, dev))
     print(json.dumps({"repo": repo, "device": smi, "ms": times}))
     return 0
 

@@ -149,6 +149,9 @@ _K3_CASES = [  # (B, H, N, S, D, k, key_bits, pred_mode, approx)
     (1, 2, 512, 512, 72, 77, 32, "two_step_leading_ones", True),
     (1, 2, 512, 512, 128, 77, 8, "ex_pred", True),
     (1, 2, 256, 256, 72, 256, 32, "two_step_leading_ones", True),  # dense
+    # the corner whose K side does not fit one block: streamed in chunks
+    (1, 2, 512, 512, 128, 77, 32, "two_step_leading_ones", True),
+    (1, 2, 320, 512, 128, 50, 16, "two_step_leading_ones", True),  # S != N
 ]
 
 
@@ -202,6 +205,28 @@ def test_k3_formats_and_subnormal_flush(cuda, bfloat, fmt):
     want = fused_topk_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "fp4_e2m1"])
+@pytest.mark.parametrize("pred_mode", ["ex_pred", "two_step_leading_ones"])
+def test_split_mxfp_corners(cuda, kernel, fmt, pred_mode):
+    """The MXFP formats (CUDA-core products) at S != N with the bias, key_bits
+    32, bf16 in and out, both tiers: bit for bit."""
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    args = [t.to(cuda) for t in _k3_inputs(1, 2, 200, 160, 72,
+                                           torch.bfloat16, 71, True)]
+    fn = fused_topk_attention if kernel == "K3" else \
+        fused_topk_attention_tiled
+    for contract in ("exact", "serving"):
+        kw = dict(k=33, scale=72 ** -0.5, key_bits=32, bfloat=16, flush=True,
+                  ebits=ebits, mbits=mbits, emax=emax, max_norm=max_norm,
+                  pred_mode=pred_mode, contract=contract,
+                  out_dtype=torch.bfloat16)
+        got = fn(*args, **kw)
+        want = fused_topk_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_k3_counts_launches_and_refuses_k4_shapes(cuda):
@@ -279,6 +304,8 @@ _K3_K4_CASES = [  # (N, S, k, pred_mode, approx, with_bias)
     (256, 120, 20, "two_step_leading_ones", True, True),
     (300, 77, 20, "ex_pred", False, True),
     (512, 512, 512, "ex_pred", True, False),  # dense
+    (512, 512, 77, "ex_pred", True, False),
+    (512, 512, 77, "two_step_leading_ones", True, True),
 ]
 
 
