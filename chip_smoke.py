@@ -29,7 +29,8 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      against K3 on shapes both take
   6. K5 (LN + modulate + MX quantize), K6 (GELU + MX quantize) and K7
      (split-emission qkv top-k attention) against their plain versions, bit
-     for bit: K5 at the DiT site and its domain cases, K6 at the DiT fc2
+     for bit: K5 at the DiT site and its domain cases (C from 96 to its
+     MAX_CHANNELS, rows in registers and in shared memory), K6 at the DiT fc2
      site, PixArt's fc2 site and in erf form, K7 at the DiT site in both
      tiers, top-k and dense, and K7 against K2 on the same values
   7. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
@@ -139,12 +140,40 @@ def attention_bound(cells, n, s, d, in_bytes, out_bytes, k, key_bits, topk,
     return bound, by, dict(bytes=t_bytes, tensor_core=t_tc, cuda_core=t_cc)
 
 
+def mx_ops(fmt, flush, bf16_round, in_bf16):
+    """Operations per element of K1's MX quantize as the plain versions
+    spell it (``ops/fastquant.py`` ``quantize_blocks`` with scale_first,
+    ``bf16_round_half_away``): the f32 cast of a bf16 input 1; the half-away
+    bf16 round 4 (add, and, isnan, where); the block maximum 2 (magnitude
+    bits, max); the flush 1 (where); the int grids 11 (two multiplies,
+    round_half_away's abs, add, floor, sign and multiply, a two-sided clamp,
+    two multiplies), the MXFP grids 23 (a multiply; the element exponent's
+    and, shift, subtract and clamp; its step's subtract and two-sided
+    clamp; two powers of two from bits, 3 + 2; two multiplies; the round,
+    5; a two-sided clamp; the block scale); the cast to the output type 1.
+    The per-block exponent work (1/32 of an element's) is left out."""
+    return (int(in_bf16) + 4 * int(bf16_round) + 2 + int(flush)
+            + (11 if fmt.startswith("int") else 23) + 1)
+
+
+def elementwise_bound(nbytes, ops):
+    """The least time (ms) and its term for a pass that moves ``nbytes``
+    (each input read once, each output written once) and does ``ops``
+    f32 and integer operations on the CUDA cores; they can overlap, so the
+    bound is the larger."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_cc = 1e3 * ops / F32_INSTR_PER_S
+    bound, by = max((t_bytes, "bytes"), (t_cc, "operations"))
+    return bound, by, dict(bytes_ms=t_bytes, cuda_core_ms=t_cc)
+
+
 def mix(sites):
     """Launch-weighted means of a kernel's per-site times and bounds, and
     the term that sets most of the weighted bound."""
     total = sum(st["launches"] for st in sites)
     out = {key: sum(st[key] * st["launches"] for st in sites) / total
-           for key in ("ms", "plain_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "bound_ms", "bytes_ms",
+                       "cuda_core_ms") if key in sites[0]}
     share = collections.Counter()
     for st in sites:
         share[st["bound_by"]] += st["bound_ms"] * st["launches"]
@@ -534,15 +563,20 @@ def main():
         check_equal(K5, label, lnq.ln_modulate_quantize(x, shift, scale, **kw),
                     lnq.ln_modulate_quantize_ref(x, shift, scale, **kw))
 
+    # the DiT site, shift and scale as the model passes them: bf16 chunks
+    # of the adaLN output (rows 6 C apart)
     B, C = 2 * DIT_IMAGES, 1152
+    mod = randn(B, 6 * C, scale=0.3, dtype=torch.bfloat16)
     check_k5("DiT site (64, 256, 1152) bf16 int8 bfloat=16",
              randn(B, 256, C, scale=3.0, dtype=torch.bfloat16),
-             randn(B, C, scale=0.3, dtype=torch.bfloat16),
-             randn(B, C, scale=0.3, dtype=torch.bfloat16), bfloat=16)
-    for c in (C, 96):
+             mod[:, :C], mod[:, C:2 * C], bfloat=16)
+    # the domain: rows in registers (96, 1152, 1280) and in shared memory
+    # (2304, 12288, the widest lnq.MAX_CHANNELS takes); 250 rows per batch
+    # element, no multiple of the kernel's 32-row tile
+    for c in (96, C, 1280, 2304, lnq.MAX_CHANNELS):
         for dtype in (torch.float32, torch.bfloat16):
-            x = randn(4, 256, c, scale=3.0, dtype=dtype)
-            sh, sc = randn(4, c, scale=0.3), randn(4, c, scale=0.3)
+            x = randn(3, 250, c, scale=3.0, dtype=dtype)
+            sh, sc = randn(3, c, scale=0.3), randn(3, c, scale=0.3)
             sc[0, :32], sh[0, :32] = -1.0, 1e-39  # a subnormal block
             for fmt in ("int8", "fp8_e4m3"):
                 for bfloat in (0, 16):
@@ -550,6 +584,19 @@ def main():
                         check_k5(f"C={c} {dtype} {fmt} bfloat={bfloat} "
                                  f"flush={flush}", x, sh, sc, elem_format=fmt,
                                  bfloat=bfloat, flush=flush)
+    for c in (C, 2304):  # f32 output, rows in registers and in shared memory
+        x = randn(3, 250, c, scale=3.0, dtype=torch.bfloat16)
+        sh, sc = randn(3, c, scale=0.3), randn(3, c, scale=0.3)
+        check_k5(f"C={c} bf16 in, f32 out, bfloat=16", x, sh, sc, bfloat=16,
+                 out_dtype=torch.float32)
+    wide = torch.zeros(1, 2, lnq.MAX_CHANNELS + 32, device=dev)
+    try:
+        lnq.ln_modulate_quantize(wide, wide[:, 0], wide[:, 0])
+        fail("K5 took a row past lnq.MAX_CHANNELS")
+    except NotImplementedError as err:
+        if "MAX_CHANNELS" not in str(err):
+            fail(f"K5's refusal does not name MAX_CHANNELS: {err}")
+    del x, sh, sc, wide
 
     def check_k6(label, x, **kw):
         check_equal(K6, label, gelu_quantize(x, **kw),
@@ -785,16 +832,19 @@ def main():
         (ms, queued), (pms, _) = (time_ms(lambda: mx_quantize(x, *args), 200),
                                   time_ms(lambda: mx_quantize_ref(x, *args),
                                           10))
-        out_dtype = args[3]
-        nbytes = x.numel() * (x.element_size() + out_dtype.itemsize)
-        bound = 1e3 * nbytes / HBM_BYTES_PER_S  # ~20 instr/elem: far below
+        in_bf16 = dtype == torch.bfloat16
+        bound, by, terms = elementwise_bound(
+            x.numel() * (x.element_size() + args[3].itemsize),
+            x.numel() * mx_ops(args[0], args[4], args[5] == 16 and not in_bf16,
+                               in_bf16))
         k1_sites.append(dict(shape=list(shape), dtype=str(dtype),
                              format=args[0], flush=args[4], bfloat=args[5],
                              launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
-                             bound_by="bytes", queued=queued))
+                             bound_by=by, **terms, queued=queued))
         print(f"[time] K1 {tuple(shape)} {dtype} flush={args[4]} x{n}: "
-              f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound:.4f} ms by "
-              f"bytes; launches queued ahead: {queued})", flush=True)
+              f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bound:.4f} ms by {by}: "
+              f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
+              f"queued ahead: {queued})", flush=True)
 
     k2_sites = []
     for (shape, dtype, heads, kw), n in sorted(main_sites[K2].items(),
@@ -869,17 +919,26 @@ def main():
             time_ms(lambda: lnq.ln_modulate_quantize(x, sh, sc, *args), 200),
             time_ms(lambda: lnq.ln_modulate_quantize_ref(x, sh, sc, *args),
                     10))
-        out_dtype = args[4]
-        nbytes = x.numel() * (x.element_size() + out_dtype.itemsize) \
-            + 2 * sh.numel() * sh.element_size()
-        bound = 1e3 * nbytes / HBM_BYTES_PER_S  # ~40 ops/elem: far below
+        # operations: per element the quantize and LN's 7 (the mean's add,
+        # the centring, the square and its add, the products by rs and by
+        # 1 + scale, the add of shift); per row 5 (two products by 1/C, the
+        # add of eps, the root, the division); per (batch element, channel)
+        # of shift and scale 3 (their f32 casts, 1 + scale)
+        rows = shape[0] * shape[1]
+        bound, by, terms = elementwise_bound(
+            x.numel() * (x.element_size() + args[4].itemsize)
+            + 2 * sh.numel() * sh.element_size(),
+            x.numel() * (7 + mx_ops(args[0], args[5], args[6] == 16,
+                                    dtype == torch.bfloat16))
+            + 5 * rows + 3 * sh.numel())
         k5_sites.append(dict(shape=list(shape), dtype=str(dtype),
                              format=args[0], flush=args[5], bfloat=args[6],
                              launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
-                             bound_by="bytes", queued=queued))
+                             bound_by=by, **terms, queued=queued))
         print(f"[time] K5 {tuple(shape)} {dtype} x{n}: {ms:.4f} ms (plain "
-              f"{pms:.3f} ms, bound {bound:.4f} ms by bytes; launches queued "
-              f"ahead: {queued})", flush=True)
+              f"{pms:.3f} ms, bound {bound:.4f} ms by {by}: "
+              f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
+              f"queued ahead: {queued})", flush=True)
 
     k6_sites = []
     for (shape, dtype, *args), n in sorted(main_sites[K6].items(),
@@ -888,16 +947,24 @@ def main():
         (ms, queued), (pms, _) = (
             time_ms(lambda: gelu_quantize(x, *args), 200),
             time_ms(lambda: gelu_quantize_ref(x, *args), 10))
-        nbytes = x.numel() * (x.element_size() + args[3].itemsize)
-        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        # GELU as _gelu_f32 spells it: tanh form 9 (x * x * x, two
+        # products and an add inside, the product by sqrt(2/pi), tanh, the
+        # add of 1, two products), erf form 5 (three products, a negation,
+        # erfc)
+        bound, by, terms = elementwise_bound(
+            x.numel() * (x.element_size() + args[3].itemsize),
+            x.numel() * ((9 if args[6] else 5)
+                         + mx_ops(args[0], args[4], args[5] == 16,
+                                  dtype == torch.bfloat16)))
         k6_sites.append(dict(shape=list(shape), dtype=str(dtype),
                              format=args[0], flush=args[4], bfloat=args[5],
                              approximate=args[6], launches=n, ms=ms,
-                             plain_ms=pms, bound_ms=bound, bound_by="bytes",
-                             queued=queued))
+                             plain_ms=pms, bound_ms=bound, bound_by=by,
+                             **terms, queued=queued))
         print(f"[time] K6 {tuple(shape)} {dtype} x{n}: {ms:.4f} ms (plain "
-              f"{pms:.3f} ms, bound {bound:.4f} ms by bytes; launches queued "
-              f"ahead: {queued})", flush=True)
+              f"{pms:.3f} ms, bound {bound:.4f} ms by {by}: "
+              f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
+              f"queued ahead: {queued})", flush=True)
 
     k7_sites = []
     for (qs, vs, dtype, heads, kw), n in sorted(main_sites[K7].items(),
@@ -937,7 +1004,9 @@ def main():
              replaces="mx_quantization_tpu/ops/kernels/quantize.py:119",
              launches=main_launches[K1], max_abs_err=k1_err,
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None, sites=k1_sites),
+             bound_by=k1["bound_by"], bytes_ms=k1["bytes_ms"],
+             cuda_core_ms=k1["cuda_core_ms"], library_ms=None,
+             sites=k1_sites),
         dict(name=K2, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu",
              replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:1054",
@@ -961,13 +1030,17 @@ def main():
              replaces="mx_quantization_tpu/ops/kernels/quantize.py:205",
              launches=main_launches[K5], max_abs_err=errs[K5], ms=k5["ms"],
              plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
-             bound_by=k5["bound_by"], library_ms=None, sites=k5_sites),
+             bound_by=k5["bound_by"], bytes_ms=k5["bytes_ms"],
+             cuda_core_ms=k5["cuda_core_ms"], library_ms=None,
+             sites=k5_sites),
         dict(name=K6, route="triton",
              source="mx_quantization_tpu_torch/ops/kernels/quantize.py",
              replaces="mx_quantization_tpu/ops/kernels/quantize.py:289",
              launches=main_launches[K6], max_abs_err=errs[K6], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
-             bound_by=k6["bound_by"], library_ms=None, sites=k6_sites),
+             bound_by=k6["bound_by"], bytes_ms=k6["bytes_ms"],
+             cuda_core_ms=k6["cuda_core_ms"], library_ms=None,
+             sites=k6_sites),
         dict(name=K7, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu",
              replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:1130",

@@ -82,6 +82,25 @@ def lane_sum(e: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def k5_row_sum(e: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a multiple of 32) in kernel K5's order: the
+    axis in 8-element chunks, chunk k on lane k % 32 in round k // 32; each
+    chunk's values as the tree ((c0 + c1) + (c2 + c3)) + ((c4 + c5) +
+    (c6 + c7)), a lane's chunk sums in round order (the last round padded
+    with zeros), then the 32 lanes by ``lane_sum``'s xor butterfly.
+    Returns (..., 1)."""
+    pad = (-e.shape[-1]) % 256
+    if pad:
+        e = torch.nn.functional.pad(e, (0, pad))
+    c = e.reshape(*e.shape[:-1], -1, 32, 8)
+    t = ((c[..., 0] + c[..., 1]) + (c[..., 2] + c[..., 3])) \
+        + ((c[..., 4] + c[..., 5]) + (c[..., 6] + c[..., 7]))
+    acc = t[..., 0, :]
+    for j in range(1, t.shape[-2]):
+        acc = acc + t[..., j, :]
+    return lane_sum(acc)
+
+
 def bf_fast(x: torch.Tensor, specs) -> torch.Tensor:
     """Elementwise format: bfloat=16 -> half-away bf16 round (kept in x's
     dtype); bfloat 0/32 -> identity."""

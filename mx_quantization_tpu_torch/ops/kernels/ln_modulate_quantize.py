@@ -9,10 +9,11 @@ consumer then skips its own quantize).  The source's note says what bounds
 it and how the design answers.
 
 Numerics (kernel and plain version), per token row of C channels, in f32:
-  * mean = lane_sum(x) * (1/C) and var = lane_sum((x - mean)^2) * (1/C),
-    with (1/C) rounded to f32 once and the sums taken in the kernel's warp
-    order (``fastquant.lane_sum``); JAX sums in XLA's order, which can move
-    a statistic by an ulp
+  * mean = k5_row_sum(x) * (1/C) and var = k5_row_sum((x - mean)^2) *
+    (1/C), with (1/C) rounded to f32 once and the sums taken in the
+    kernel's order (``fastquant.k5_row_sum``: 8-channel chunks as trees,
+    a lane's chunks in order, the lanes by an xor butterfly); JAX sums in
+    XLA's order, which can move a statistic by an ulp
   * 1 / sqrt(var + eps), each step correctly rounded
   * y = ((x - mean) * rs) * (1 + scale) + shift, every multiply and add
     rounded on its own (the source spells each as a __fmul_rn or
@@ -33,15 +34,16 @@ import functools
 import torch
 
 from ...formats import format_params
-from ..fastquant import lane_sum
+from ..fastquant import k5_row_sum
 from . import build
 from .quantize import mx_quantize_ref
 
 SOURCE = "ln_modulate_quantize.cu"
-# a warp holds a row in registers: at most MAX_CHANNELS channels, DiT-XL's
-# and PixArt's width (the registers, and with them the blocks an SM holds,
-# follow this constant)
-MAX_CHANNELS = 1152
+# the widest row: JAX's tile rule keeps 64 rows of up to 12288 channels in
+# its 12 MB (quantize.py:227-229).  Rows of up to 1280 channels stay in a
+# warp's registers; a wider row is kept in shared memory, 4 C bytes a warp
+# for f32 input (the source checks that this constant's row fits there)
+MAX_CHANNELS = 12288
 DEFINES = (("K5_MAX_CHANNELS", MAX_CHANNELS),)
 
 
@@ -63,8 +65,8 @@ def ln_modulate_quantize_ref(x: torch.Tensor, shift: torch.Tensor,
                          f"({block_size})")
     x32 = x.to(torch.float32)
     inv_c = _inv(C)
-    xc = x32 - lane_sum(x32) * inv_c
-    var = lane_sum(xc * xc) * inv_c
+    xc = x32 - k5_row_sum(x32) * inv_c
+    var = k5_row_sum(xc * xc) * inv_c
     rs = 1.0 / torch.sqrt(var + eps)
     y = (xc * rs) * (1.0 + scale.to(torch.float32)[:, None]) \
         + shift.to(torch.float32)[:, None]
@@ -77,9 +79,20 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE, DEFINES)
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.ln_modulate_quantize.argtypes = [p, p, p, p, ctypes.c_longlong, i, i,
-                                         i, i, f, f, i, i, i, i, i, f, i, p]
+                                         i, i, i, i, i, f, f, i, i, i, i, i,
+                                         f, i, p]
     lib.ln_modulate_quantize.restype = ctypes.c_int
     return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy unless its last axis has unit stride and
+    its data and rows are 16-byte aligned (the kernel reads 16 bytes at a
+    time; the adaLN output's shift and scale chunks already qualify)."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            s * t.element_size() % 16 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
@@ -115,25 +128,28 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
         raise NotImplementedError("K5 quantizes in 32-element blocks")
     if C % 32 or C > MAX_CHANNELS:
         raise NotImplementedError(
-            f"K5 holds a row in a warp's registers: C must be a multiple of "
-            f"32 up to {MAX_CHANNELS}, got {C}")
+            f"K5 takes C a multiple of 32 up to MAX_CHANNELS = {MAX_CHANNELS} "
+            f"(ops/kernels/ln_modulate_quantize.py), got {C}")
     if not x.is_contiguous():
         raise ValueError("K5 takes a contiguous x")
     out = torch.empty(B, N, C, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return out
-    sh = shift.to(torch.float32).contiguous()
-    sc = scale.to(torch.float32).contiguous()
+    x = _aligned(x)
+    if shift.dtype == scale.dtype == torch.bfloat16:
+        sh, sc = _aligned(shift), _aligned(scale)
+    else:
+        sh, sc = (_aligned(t.to(torch.float32)) for t in (shift, scale))
     ebits, mbits, emax, max_norm, _ = format_params(elem_format)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ln_modulate_quantize(
             x.data_ptr(), sh.data_ptr(), sc.data_ptr(), out.data_ptr(), B * N,
-            N, C, int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), _inv(C), float(eps),
-            int(bfloat == 16), int(flush), ebits, mbits, emax,
-            float(max_norm), scale_bits, stream)
+            N, C, sh.stride(0), sc.stride(0), int(x.dtype == torch.bfloat16),
+            int(sh.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            _inv(C), float(eps), int(bfloat == 16), int(flush), ebits, mbits,
+            emax, float(max_norm), scale_bits, stream)
     if err:
         raise RuntimeError(f"K5 launch failed with CUDA error {err}")
     ln_modulate_quantize.launches += 1

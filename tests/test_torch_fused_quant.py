@@ -41,7 +41,8 @@ from mx_quantization_tpu.workloads.pixart import pixart_mx_specs as jax_specs
 
 import mx_quantization_tpu_torch.models.pixart as port_pixart
 from mx_quantization_tpu_torch.models.pixart import PixArtQuantConfig
-from mx_quantization_tpu_torch.ops.fastquant import gelu_quantize_serving
+from mx_quantization_tpu_torch.ops.fastquant import (
+    gelu_quantize_serving, k5_row_sum, lane_sum)
 from mx_quantization_tpu_torch.ops.kernels.ln_modulate_quantize import (
     ln_modulate_quantize, ln_modulate_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.quantize import (
@@ -78,10 +79,14 @@ def _cases(crossed, each_other_format):
     return cases + [(f, *c) for f in FORMATS[1:] for c in each_other_format]
 
 
-# (fmt, C, bfloat, flush, dtype)
+# (fmt, C, bfloat, flush, dtype); 1280 is the widest row the kernel keeps
+# in registers, 2304 a row it keeps in shared memory
 K5_CASES = _cases(([96, 1152], [0, 16], [False, True],
                    ["float32", "bfloat16"]),
-                  [(96, 16, True, "float32"), (96, 0, False, "bfloat16")])
+                  [(96, 16, True, "float32"), (96, 0, False, "bfloat16")]) + [
+    ("int8", 1280, 16, False, "bfloat16"), ("int8", 2304, 0, True, "float32"),
+    ("fp8_e4m3", 1280, 0, True, "float32"),
+    ("fp8_e4m3", 2304, 16, False, "bfloat16")]
 
 
 @pytest.mark.parametrize(
@@ -101,6 +106,42 @@ def test_k5_plain_matches_jax_kernel(C, fmt, bfloat, flush, dtype):
                                    torch.from_numpy(scale), **kw)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     _assert_grid_tie_parity(want, _np(got))
+
+
+def _k5_order_sum(row):
+    """K5's sum of a float32 row, step by step as the kernel's note states:
+    lane l takes the 8-channel chunks l + 32 j, sums each as the tree
+    ((c0 + c1) + (c2 + c3)) + ((c4 + c5) + (c6 + c7)) and the chunk sums
+    in j order (a chunk past the row's end is zeros); the lanes then add by
+    an xor butterfly."""
+    chunks, rounds = len(row) // 8, -(-len(row) // 256)
+    lanes = []
+    for lane in range(32):
+        s = None
+        for j in range(rounds):
+            k = lane + 32 * j
+            c = row[8 * k:8 * k + 8] if k < chunks else np.zeros(8, np.float32)
+            t = ((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5]) + (c[6] + c[7]))
+            s = t if s is None else s + t
+        lanes.append(s)
+    for off in (16, 8, 4, 2, 1):
+        lanes = [lanes[i] + lanes[i ^ off] for i in range(32)]
+    return lanes[0]
+
+
+@pytest.mark.parametrize("C", [96, 288, 1152])
+def test_k5_row_sum_is_the_kernels_order(C):
+    """``fastquant.k5_row_sum`` against the order spelled out (288: a last
+    round of 4 chunks), bit for bit; at these magnitudes the order shows:
+    ``lane_sum``'s differs on some rows."""
+    rng = np.random.RandomState(C)
+    rows = (rng.randn(64, C) * 10.0 ** rng.randint(-3, 4, (64, C))).astype(
+        np.float32)
+    got = k5_row_sum(torch.from_numpy(rows))[:, 0].numpy()
+    want = np.array([_k5_order_sum(r) for r in rows], np.float32)
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
+    other = lane_sum(torch.from_numpy(rows))[:, 0].numpy()
+    assert (other != got).any()
 
 
 def test_k5_flushes_a_subnormal_block_like_jax():

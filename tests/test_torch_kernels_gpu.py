@@ -17,9 +17,9 @@ import torch
 
 from mx_quantization_tpu_torch.formats import format_params
 from mx_quantization_tpu_torch.models.dit import (DiTConfig, DiTQuantConfig,
-                                                  init_dit)
+                                                  dit_forward, init_dit)
 from mx_quantization_tpu_torch.ops.kernels.ln_modulate_quantize import (
-    ln_modulate_quantize, ln_modulate_quantize_ref)
+    MAX_CHANNELS, ln_modulate_quantize, ln_modulate_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.quantize import (
     gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
@@ -348,7 +348,7 @@ def test_k4_refuses_what_it_does_not_serve(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bfloat", [0, 16])
 @pytest.mark.parametrize("flush", [False, True])
-@pytest.mark.parametrize("C", [96, 1152])
+@pytest.mark.parametrize("C", [96, 1152, 1280, 4096])
 def test_k5_matches_plain(cuda, fmt, dtype, bfloat, flush, C):
     x = (3 * _normal((3, 50, C), 41) + 0.5).to(dtype)  # rows % 8 != 0
     shift, scale = 0.3 * _normal((3, C), 42), 0.3 * _normal((3, C), 43)
@@ -362,15 +362,74 @@ def test_k5_matches_plain(cuda, fmt, dtype, bfloat, flush, C):
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("C", [96, 1280, 2304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_f32_output(cuda, dtype, C):
+    x = (3 * _normal((3, 50, C), 51)).to(dtype)
+    shift, scale = 0.3 * _normal((3, C), 52), 0.3 * _normal((3, C), 53)
+    args = [t.to(cuda) for t in (x, shift, scale)]
+    kw = dict(bfloat=16, out_dtype=torch.float32)
+    got = ln_modulate_quantize(*args, **kw)
+    want = ln_modulate_quantize_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 def test_k5_counts_launches_and_refuses_wide_rows(cuda):
     x, s = torch.ones(2, 8, 64, device=cuda), torch.zeros(2, 64, device=cuda)
     before = ln_modulate_quantize.launches
     ln_modulate_quantize(x, s, s)
     assert ln_modulate_quantize.launches == before + 1
-    wide, sw = torch.ones(1, 2, 1280, device=cuda), torch.zeros(1, 1280,
-                                                                 device=cuda)
-    with pytest.raises(NotImplementedError):
+    # 1280 channels, wider than DiT-XL's, are served
+    x = (3 * _normal((2, 8, 1280), 44)).to(cuda)
+    shift, scale = ((0.3 * _normal((2, 1280), 45 + i)).to(cuda)
+                    for i in range(2))
+    assert torch.equal(ln_modulate_quantize(x, shift, scale, bfloat=16),
+                       ln_modulate_quantize_ref(x, shift, scale, bfloat=16))
+    assert ln_modulate_quantize.launches == before + 2
+    C = MAX_CHANNELS + 32
+    wide, sw = torch.ones(1, 2, C, device=cuda), torch.zeros(1, C,
+                                                              device=cuda)
+    with pytest.raises(NotImplementedError, match="MAX_CHANNELS"):
         ln_modulate_quantize(wide, sw, sw)
+
+
+def test_k5_reads_strided_bf16_modulation(cuda):
+    """shift and scale as the DiT blocks pass them: bf16 chunks of the
+    adaLN output, rows 6 C apart, read in place."""
+    x = (3 * _normal((2, 40, 1152), 47)).to(torch.bfloat16).to(cuda)
+    mod = (0.3 * _normal((2, 6 * 1152), 48)).to(torch.bfloat16).to(cuda)
+    shift, scale = mod[:, :1152], mod[:, 1152:2304]
+    got = ln_modulate_quantize(x, shift, scale, bfloat=16)
+    want = ln_modulate_quantize_ref(x, shift.contiguous(),
+                                    scale.contiguous(), bfloat=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_dit_hidden_1280_serving_runs_k5(cuda):
+    """A two-block DiT of hidden 1280 with fuse_ln_modulate in the serving
+    tier: the gate (JAX's) sends every LN-modulate to K5, which serves the
+    width; K5 launches twice per block and once in the final layer."""
+    cfg = DiTConfig(input_size=8, hidden_size=1280, depth=2, num_heads=20,
+                    num_classes=10)
+    qcfg = DiTQuantConfig(mx_specs=dit_mx_specs(), mx_quant=True,
+                          top_k=True, k=6, exclude_blocks=(1,),
+                          topk_key_bits=8, contract="serving",
+                          activation_dtype="bfloat16", fuse_ln_modulate=True)
+    model = init_dit(cfg, torch.Generator().manual_seed(0), cuda,
+                     randomize_all=True)
+    x = _normal((2, 4, 8, 8), 49).to(cuda)
+    t, y = torch.tensor([10, 200], device=cuda), torch.tensor([1, 3],
+                                                              device=cuda)
+    before = ln_modulate_quantize.launches
+    ln_modulate_quantize.sites.clear()
+    out = dit_forward(model, x, t, y, qcfg)
+    torch.cuda.synchronize()
+    assert out.shape == (2, cfg.out_channels, 8, 8)
+    assert torch.isfinite(out).all()
+    assert ln_modulate_quantize.launches - before == 2 * cfg.depth + 1
+    assert {site[0] for site in ln_modulate_quantize.sites} == {(2, 16, 1280)}
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4", "fp8_e4m3", "fp6_e3m2"])
