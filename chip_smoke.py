@@ -6,9 +6,9 @@
 Needs one CUDA GPU (Hopper: the CUDA kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
-  2. build: K2 and K7 (one source), K3 and K4 (one source) and K5 from
-     csrc/, one nvcc each, started together (K1 and K6 compile through
-     Triton's JIT)
+  2. build: K2 and K7 (one source), K3 and K4 (one source, built in five
+     parts) and K5 from csrc/, one nvcc each, started together (K1 and K6
+     compile through Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
      shapes (bf16/f32 in, bfloat 0/16) and at the PixArt sites (f32 in,
      flush, bfloat 0/32)
@@ -78,6 +78,11 @@ DIT512_IMAGES = 4  # tools/workload_probe.py dit512_probe
 PIXART_STEPS = 20
 PIXART_PROMPTS = 100  # the reference's batch (SURVEY.md, PixArt-alpha 256^2)
 CAPTION_TOKENS = 120
+PIXART1024_STEPS = 20  # tools/workload_probe.py pixart1024_probe
+MODE_PROMPTS = 8
+# K3's and K4's predictors beyond ex_pred and two_step
+NEW_MODES = ("MXINT4", "partial_Q", "partial_K", "true_ex", "threshold_ex",
+             "ELSA")
 
 
 def time_ms(fn, reps, warmup=2):
@@ -106,13 +111,26 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(stop) / reps, queued
 
 
+def event_ms(fn):
+    """``fn()`` and its device ms from CUDA events around the one call (for
+    calls of 10 ms and more, where the host's launch time is small)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", flush=True)
     sys.exit(1)
 
 
 def attention_bound(cells, n, s, d, in_bytes, out_bytes, k, key_bits, topk,
-                    extra_bytes=0):
+                    extra_bytes=0, pred="ex_pred"):
     """The least time (ms) and its term for one top-k attention call over
     ``cells`` (row, head) cells of n queries and s keys of width d.  Bytes:
     q, k, v read once and the output written once (plus ``extra_bytes``).
@@ -123,17 +141,30 @@ def attention_bound(cells, n, s, d, in_bytes, out_bytes, k, key_bits, topk,
     top-k sites: finding the k-th key, one pass of one operation per pair
     for each 8 key bits (a radix histogram), and the softmax's max, exp,
     sum and divide over the k keys a row keeps; when dense, the softmax
-    over every pair.  Memory traffic and both kinds of operations can
-    overlap, so the bound is the largest of the three."""
+    over every pair.  By predictor: ex_pred, two_step, MXINT4, partial and
+    threshold_ex one product per pair on the tensor cores; ELSA none there,
+    but on the CUDA cores its projection, bits * d multiply-adds (2
+    operations) per token and side (bits = d), and per pair the xor and
+    popcount of its d / 32 words, their sum, the table read and the norm's
+    product; true_ex, as its design computes it, every product (the true
+    score, the predictor, PV) as CUDA-core multiply-adds (one instruction
+    each).  Memory traffic and both kinds of operations can overlap, so the
+    bound is the largest of the three."""
     rows = cells * n
     pairs = rows * s
     nbytes = cells * ((n + 2 * s) * d * in_bytes + n * d * out_bytes) \
         + extra_bytes
     kk = min(k, s)
-    t_tc = 1e3 * (2 * pairs * d * (2 if topk else 1)
-                  + 2 * rows * kk * d) / BF16_OPS_PER_S
-    select_ops = pairs * -(-key_bits // 8) if topk else 0
-    t_cc = 1e3 * (select_ops + 4 * rows * kk) / F32_INSTR_PER_S
+    tc_pred = topk and pred not in ("ELSA", "true_ex")
+    tc_ops = 2 * pairs * d * (2 if tc_pred else 1) + 2 * rows * kk * d
+    cc_ops = (pairs * -(-key_bits // 8) if topk else 0) + 4 * rows * kk
+    if topk and pred == "ELSA":
+        cc_ops += 2 * d * d * (rows + cells * s) + pairs * (2 * -(-d // 32) + 3)
+    if pred == "true_ex":
+        cc_ops += tc_ops // 2
+        tc_ops = 0
+    t_tc = 1e3 * tc_ops / BF16_OPS_PER_S
+    t_cc = 1e3 * cc_ops / F32_INSTR_PER_S
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     bound, by = max((t_bytes, "bytes"), (t_tc, "operations"),
                     (t_cc, "operations"))
@@ -207,6 +238,7 @@ def main():
     from mx_quantization_tpu_torch.ops.kernels import \
         ln_modulate_quantize as lnq
     from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
+    from mx_quantization_tpu_torch.predictors.elsa import orthogonal_matrix
     from mx_quantization_tpu_torch.ops.kernels.quantize import (
         gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
     from mx_quantization_tpu_torch.utils.prequantize import prequantize_weights
@@ -245,8 +277,7 @@ def main():
 
     # ---- 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ((ta.SOURCE, ta.K2_DEFINES),
-               (ta.SPLIT_SOURCE, ta.SPLIT_DEFINES),
+    sources = ((ta.SOURCE, ta.K2_DEFINES), *ta.split_builds(),
                (lnq.SOURCE, lnq.DEFINES))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda sd: build.build(*sd), sources))
@@ -319,12 +350,19 @@ def main():
     # ---- 5. K3 against its plain version, bit for bit (f32 and bf16
     # output: the bf16 output is the RNE cast of the same f32 values)
     k3_err = 0.0
+    mode_times = []  # phase 5's timed checks of the modes
 
-    def check_k3(label, q, keys, values, bias, **kw):
+    def check_k3(label, q, keys, values, bias, timed=False, **kw):
+        """Hold K3 to its plain version; with ``timed``, the device ms of
+        a second kernel call and of the plain version's call."""
         nonlocal k3_err
-        got = ta.fused_topk_attention(q, keys, values, bias, **kw)
-        want = ta.fused_topk_attention_ref(q, keys, values, bias, **kw)
-        torch.cuda.synchronize()
+        got, ms = event_ms(lambda: ta.fused_topk_attention(q, keys, values,
+                                                          bias, **kw))
+        want, pms = event_ms(lambda: ta.fused_topk_attention_ref(
+            q, keys, values, bias, **kw))
+        if timed:
+            _, ms = event_ms(lambda: ta.fused_topk_attention(
+                q, keys, values, bias, **kw))
         g, w = got.float(), want.float()
         diff = (g - w).abs()
         k3_err = max(k3_err, diff.max().item())
@@ -332,9 +370,12 @@ def main():
         ok = torch.equal(got, want)
         print(f"[k3] {label} {kw.get('contract', 'exact')} "
               f"out={kw.get('out_dtype', torch.float32)}: bit-equal share "
-              f"{eq:.6f} max |diff| {diff.max().item():.3e}", flush=True)
+              f"{eq:.6f} max |diff| {diff.max().item():.3e}"
+              + (f"; {ms:.3f} ms (plain {pms:.1f} ms)" if timed else ""),
+              flush=True)
         if not ok or not torch.isfinite(got).all():
             fail(f"K3 {label} {kw} differs from its plain version")
+        return ms, pms
 
     H, D = 16, 72
     pix = dict(scale=D ** -0.5, key_bits=32, flush=True, bfloat=0)
@@ -437,25 +478,35 @@ def main():
     # tensor is 2.1 GB, and the plain version keeps several)
     k4_err = 0.0
 
-    def check_k4(label, q, keys, values, bias, heads=16, **kw):
+    def check_k4(label, q, keys, values, bias, heads=16, timed=False, **kw):
+        """Hold K4 to its plain version, taken per ``heads`` heads; with
+        ``timed``, the device ms of a second kernel call and of the plain
+        version's calls."""
         nonlocal k4_err
-        got = ta.fused_topk_attention_tiled(q, keys, values, bias, **kw)
-        torch.cuda.synchronize()
-        same = True
+        got, ms = event_ms(lambda: ta.fused_topk_attention_tiled(
+            q, keys, values, bias, **kw))
+        if timed:
+            _, ms = event_ms(lambda: ta.fused_topk_attention_tiled(
+                q, keys, values, bias, **kw))
+        same, pms = True, 0.0
         for h0 in range(0, q.shape[1], heads):
             hs = slice(h0, h0 + heads)
-            want = ta.fused_topk_attention_ref(
+            want, t = event_ms(lambda: ta.fused_topk_attention_ref(
                 q[:, hs].contiguous(), keys[:, hs].contiguous(),
-                values[:, hs].contiguous(), bias, **kw)
+                values[:, hs].contiguous(), bias, **kw))
+            pms += t
             diff = (got[:, hs].float() - want.float()).abs().max().item()
             k4_err = max(k4_err, diff)
             same = same and torch.equal(got[:, hs], want)
             del want
         print(f"[k4] {label} {kw.get('contract', 'exact')} "
               f"in={q.dtype} out={kw.get('out_dtype', torch.float32)}: "
-              f"bit-equal {same}", flush=True)
+              f"bit-equal {same}"
+              + (f"; {ms:.3f} ms (plain {pms:.1f} ms)" if timed else ""),
+              flush=True)
         if not same or not torch.isfinite(got).all():
             fail(f"K4 {label} {kw} differs from its plain version")
+        return ms, pms
 
     H, D = 16, 72
     # DiT-XL/2 512^2: 4 images with CFG, N = S = 1024, bf16 in and out
@@ -490,6 +541,81 @@ def main():
                      *args[3:], cbias, k=60,
                      pred_mode="two_step_leading_ones", **kw)
         del args
+    # ---- 5. the other predictor modes on K3 and K4, bit for bit against
+    # the plain version in both tiers: K3 at PixArt-256's self site (200
+    # rows, f32) and, the exponent modes, its cross site with the bias; K4
+    # at PixArt-1024's self site (bf16, key_bits 8, the plain version per 8
+    # heads) and, the exponent modes, its cross site (S = 120, bias); ELSA
+    # at the self sites only (square).  Each check's calls are timed with
+    # CUDA events (one call each: 10-1000 ms); phase 10 reports them per mode
+    proj = orthogonal_matrix(D, dev)
+    split0 = ta._split_library(0)  # host code: every part answers
+    for mode in ("two_step_leading_ones",) + NEW_MODES:
+        sizes = []
+        for b_, s_ in ((2, 4096), (B2, 256)):
+            for relaxed in (0, 1):
+                sizes.append(split0.topk_attention_split_workspace_bytes(
+                    b_, H, s_, D, 77, 1, ta.SPLIT_PRED_MODES.index(mode),
+                    relaxed, 0) / 2 ** 20)
+        print(f"[k3/k4] {mode} workspace MiB at (2, 16, 4096) exact/serving "
+              f"{sizes[0]:.1f}/{sizes[1]:.1f}, at (200, 16, 256) "
+              f"{sizes[2]:.1f}/{sizes[3]:.1f}", flush=True)
+    sq3 = randn(B2, H, 256, D, scale=4.0)
+    sk3, sv3 = randn(B2, H, 256, D, scale=4.0), randn(B2, H, 256, D)
+    ck3, cv3 = randn(B2, H, CAPTION_TOKENS, D, scale=4.0), \
+        randn(B2, H, CAPTION_TOKENS, D)
+    bias3, _ = caption_bias(B2, CAPTION_TOKENS, dev)
+    pk16, pv16 = pk.to(torch.bfloat16), pv.to(torch.bfloat16)
+    pq16, ck16, cv16 = (t.to(torch.bfloat16) for t in (pq, ck, cv))
+    for mode in NEW_MODES:
+        mp = proj if mode == "ELSA" else None
+        for contract in ("exact", "serving"):
+            kw = dict(pix, contract=contract, pred_mode=mode, proj=mp)
+            ms, pms = check_k3(f"{mode} self k=77", sq3, sk3, sv3, None,
+                               timed=True, k=77, **kw)
+            mode_times.append(dict(kernel=K3, mode=mode, site="self",
+                                   contract=contract, ms=ms, plain_ms=pms,
+                                   shape=(B2, H, 256, 256, D, 4, None)))
+            if mode != "ELSA":
+                ms, pms = check_k3(f"{mode} cross k=60 S=120 bias", sq3, ck3,
+                                   cv3, bias3, timed=True, k=60, **kw)
+                mode_times.append(dict(
+                    kernel=K3, mode=mode, site="cross", contract=contract,
+                    ms=ms, plain_ms=pms,
+                    shape=(B2, H, 256, CAPTION_TOKENS, D, 4, True)))
+            kw = dict(scale=D ** -0.5, key_bits=8, flush=True, bfloat=0,
+                      contract=contract, out_dtype=torch.bfloat16,
+                      pred_mode=mode, proj=mp)
+            ms, pms = check_k4(f"PixArt-1024 self {mode} k=77", pq16, pk16,
+                               pv16, None, heads=8, timed=True, k=77, **kw)
+            mode_times.append(dict(kernel=K4, mode=mode, site="self",
+                                   contract=contract, ms=ms, plain_ms=pms,
+                                   shape=(2, H, 4096, 4096, D, 2, None)))
+            if mode != "ELSA":
+                ms, pms = check_k4(f"PixArt-1024 cross {mode} k=60 bias",
+                                   pq16, ck16, cv16, cbias, timed=True, k=60,
+                                   **kw)
+                mode_times.append(dict(
+                    kernel=K4, mode=mode, site="cross", contract=contract,
+                    ms=ms, plain_ms=pms,
+                    shape=(2, H, 4096, CAPTION_TOKENS, D, 2, True)))
+    # the two paths' own sites of these modes: DiT-XL/2's ELSA site (K3,
+    # 64 rows of bf16, bfloat 16, key_bits 8, k = 154, no flush) and block
+    # 27's cross attention at PixArt-1024 (K4, ex_pred, k = 60, the bias)
+    int8_norm = format_params("int8")[3]
+    dq3, dk3, dv3 = (randn(2 * DIT_IMAGES, H, 256, D, scale=sc,
+                           dtype=torch.bfloat16) for sc in (4.0, 4.0, 1.0))
+    for contract in ("exact", "serving"):
+        check_k3("DiT-256 ELSA k=154", dq3, dk3, dv3, None, k=154,
+                 scale=D ** -0.5, key_bits=8, bfloat=16, contract=contract,
+                 out_dtype=torch.bfloat16, pred_mode="ELSA", proj=proj,
+                 max_norm=int8_norm)
+        check_k4("PixArt-1024 cross ex_pred k=60 bias (block 27)", pq16,
+                 ck16, cv16, cbias, k=60, pred_mode="ex_pred",
+                 scale=D ** -0.5, key_bits=8, flush=True, contract=contract,
+                 out_dtype=torch.bfloat16, max_norm=int8_norm)
+    del dq3, dk3, dv3
+    del sq3, sk3, sv3, ck3, cv3, pk16, pv16, pq16, ck16, cv16
     del pq, pk, pv, ck, cv
     # the domain at a small batch: N not a multiple of 32, N = 200 against
     # S = 4096, key_bits 16 and 32 (32 at S = 4096 takes 8-row tiles),
@@ -754,6 +880,21 @@ def main():
     qc = dataclasses.replace(fused_q, contract="serving")
     profile("DiT-XL/2 fused opt-ins", lambda: sample_dit(
         model, qc, labels, gen, num_steps=2, device=dev), 2)
+
+    # 7. DiT-XL/2 with ELSA through the entry point, 2 steps per tier, the
+    # structured projection: K2 serves ex_pred alone, so every top-k
+    # block's attention takes K3, and block 27 (dense) K2; per forward K1
+    # 114, K3 27, K2 1
+    for contract in ("serving", "exact"):
+        qc = dataclasses.replace(dit_q, pred_mode="ELSA", contract=contract)
+        lat = run_path("DiT-XL/2 ELSA", contract, 2,
+                       {K1: 4 * depth + 2, K2: 1, K3: depth - 1}, DIT_IMAGES,
+                       lambda: sample_dit(model, qc, labels, gen,
+                                          num_steps=2, device=dev,
+                                          orthogonal_matrix=proj))
+        if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
+                not torch.isfinite(lat).all():
+            fail(f"DiT ELSA {contract}: latents not finite / wrong shape")
     del model
 
     # 7. DiT-XL/2 512^2 (tools/workload_probe.py dit512_probe): N = 1024
@@ -821,6 +962,69 @@ def main():
     profile("PixArt-alpha-256", lambda: sample_pixart(
         pmodel, qc, embeds, mask, null, num_steps=2, latents=noise,
         device=dev), 2)
+
+    # 8. each other predictor mode through the entry points: PixArt-alpha
+    # 256^2 at full width, 8 prompts, 2 steps per tier, self top-k k = 77
+    # and cross top-k k = 60 (ELSA without: JAX sends non-square ELSA to its
+    # XLA path); K3 56 per forward
+    for mode in NEW_MODES:
+        mq = dataclasses.replace(pix_q, pred_mode=mode,
+                                 cross_top_k=mode != "ELSA", cross_k=60)
+        for contract in ("serving", "exact"):
+            qc = dataclasses.replace(mq, contract=contract)
+            lat = run_path(f"PixArt-alpha-256 {mode}", contract, 2,
+                           pix_per_fwd, MODE_PROMPTS,
+                           lambda: sample_pixart(
+                               pmodel, qc, embeds[:MODE_PROMPTS],
+                               mask[:MODE_PROMPTS], null, num_steps=2,
+                               latents=noise[:MODE_PROMPTS], device=dev))
+            if lat.shape != (MODE_PROMPTS, 4, 32, 32) or \
+                    not torch.isfinite(lat).all():
+                fail(f"PixArt {mode} {contract}: latents not finite / wrong "
+                     "shape")
+    del pmodel, embeds, null
+
+    # 8. PixArt-alpha 1024^2 (tools/workload_probe.py pixart1024_probe):
+    # sample_size 128 (N = 4096 latent tokens) with micro-conditioning, 1
+    # prompt with CFG (2 rows), weights prequantized to bf16, bf16
+    # activations, self top-k two_step k = 77 and cross top-k k = 60 at
+    # key_bits 8, block 27 dense; every attention is K4 (28 self, 28 cross
+    # per forward), every quantized linear K1
+    p1cfg = PixArtConfig(sample_size=128)
+    t0 = time.perf_counter()
+    pmodel = init_pixart(p1cfg, torch.Generator().manual_seed(0), dev)
+    pmodel, p1specs = prequantize_weights(pmodel, pixart_mx_specs(),
+                                          serve_dtype=torch.bfloat16)
+    print(f"[slice] PixArt-alpha 1024^2 random weights, prequantized bf16, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    embeds = randn(1, CAPTION_TOKENS, p1cfg.caption_channels)
+    _, mask = caption_bias(1, CAPTION_TOKENS, dev, shortest=77)
+    null = randn(1, CAPTION_TOKENS, p1cfg.caption_channels)
+    noise = randn(1, 4, 128, 128)
+    pix1_q = PixArtQuantConfig(
+        mx_specs=p1specs, mx_quant=True, self_top_k=True, self_k=77,
+        cross_top_k=True, cross_k=60, ex_pred=True,
+        pred_mode="two_step_leading_ones", exclude_blocks=(27,),
+        topk_key_bits=8, activation_dtype="bfloat16")
+    pix1_per_fwd = {K1: 10 * p1cfg.num_layers, K4: 2 * p1cfg.num_layers}
+    for contract in ("serving", "exact"):
+        qc = dataclasses.replace(pix1_q, contract=contract)
+
+        def sample(steps, qc=qc):
+            return sample_pixart(pmodel, qc, embeds, mask, null,
+                                 num_steps=steps, latents=noise, device=dev)
+
+        sample(1)  # warm
+        lat = run_path("PixArt-alpha-1024", contract, PIXART1024_STEPS,
+                       pix1_per_fwd, 1, lambda: sample(PIXART1024_STEPS))
+        if lat.shape != (1, 4, 128, 128) or not torch.isfinite(lat).all():
+            fail(f"PixArt-1024 {contract}: latents not finite / wrong shape")
+        print(f"[slice] PixArt-alpha-1024 {contract}: latent std "
+              f"{lat.float().std().item():.4g}")
+    qc = dataclasses.replace(pix1_q, contract="serving")
+    profile("PixArt-alpha-1024", lambda: sample_pixart(
+        pmodel, qc, embeds, mask, null, num_steps=2, latents=noise,
+        device=dev), 2)
     del pmodel, embeds, null
 
     # ---- 10. kernel times at every call site the paths launched, weighted
@@ -869,9 +1073,13 @@ def main():
               f"queued ahead: {queued})", flush=True)
 
     def split_sites(label, kernel):
-        """Times of K3 or K4 at each call site of the paths."""
+        """Times of K3 or K4 at each call site of the paths, each site's
+        output held bit for bit to the plain version's.  Where a site has
+        over 2^28 (query, key) pairs, the plain version takes half the heads
+        and its time is doubled (its score tensors would not fit)."""
+        nonlocal k3_err, k4_err
         out = []
-        for (qs, ks, dtype, bshape, kw), n in sorted(
+        for (qs, ks, dtype, bshape, pshape, kw), n in sorted(
                 main_sites[kernel.__name__].items(), key=lambda kv: -kv[1]):
             kw = dict(kw)
             q = randn(*qs, scale=4.0, dtype=dtype)
@@ -879,35 +1087,71 @@ def main():
             vx = randn(*ks, dtype=dtype)
             bias = None if bshape is None else caption_bias(
                 bshape[0], bshape[3], dev)[0]
-            (ms, queued), (pms, _) = (
-                time_ms(lambda: kernel(q, kx, vx, bias, **kw), 20),
-                time_ms(lambda: ta.fused_topk_attention_ref(q, kx, vx, bias,
-                                                            **kw),
-                        2, warmup=1))
+            mp = None if pshape is None else orthogonal_matrix(qs[3], dev)
             b, h, nq, d = qs
             s = ks[2]
+            ms, queued = time_ms(lambda: kernel(q, kx, vx, bias, mp, **kw),
+                                 20)
+            hp = h if b * h * nq * s <= 2 ** 28 else h // 2
+            hq, hk, hv = (t[:, :hp].contiguous() for t in (q, kx, vx))
+            pms, _ = time_ms(lambda: ta.fused_topk_attention_ref(
+                hq, hk, hv, bias, mp, **kw), 2, warmup=1)
+            pms *= h / hp
+            got = kernel(q, kx, vx, bias, mp, **kw)[:, :hp]
+            want = ta.fused_topk_attention_ref(hq, hk, hv, bias, mp, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            if kernel is ta.fused_topk_attention:
+                k3_err = max(k3_err, err)
+            else:
+                k4_err = max(k4_err, err)
+            if not torch.equal(got, want) or not torch.isfinite(got).all():
+                fail(f"{label} at {(qs, ks, bshape, kw)} differs from its "
+                     "plain version")
+            del got, want
             topk = kw["k"] < s
+            pred = kw["pred_mode"] if topk and kw["approx"] else None
             bound, by, terms = attention_bound(
                 b * h, nq, s, d, q.element_size(), kw["out_dtype"].itemsize,
                 kw["k"], kw["key_bits"], topk,
-                extra_bytes=0 if bias is None else b * s * 4)
+                extra_bytes=0 if bias is None else b * s * 4, pred=pred)
             out.append(dict(contract=kw["contract"], k=kw["k"],
                             q_shape=list(qs), k_shape=list(ks),
                             dtype=str(dtype), bias=bshape is not None,
-                            pred_mode=kw["pred_mode"] if topk and
-                            kw["approx"] else None,
-                            launches=n, ms=ms, plain_ms=pms, bound_ms=bound,
-                            bound_by=by, queued=queued))
+                            pred_mode=pred, launches=n, ms=ms, plain_ms=pms,
+                            bound_ms=bound, bound_by=by, queued=queued))
             print(f"[time] {label} {kw['contract']} k={kw['k']} N={nq} S={s} "
-                  f"approx={kw['approx']} bias={bshape is not None} x{n}: "
-                  f"{ms:.4f} ms (plain {pms:.2f} ms, bound {bound:.4f} ms by "
+                  f"pred={pred} bias={bshape is not None} {dtype} x{n}: "
+                  f"bit-equal to the plain version; {ms:.4f} ms (plain {pms:.2f} ms, bound {bound:.4f} ms by "
                   f"{by}: { {t: round(v, 4) for t, v in terms.items()} }; "
                   f"launches queued ahead: {queued})", flush=True)
-            del q, kx, vx
+            del q, kx, vx, hq, hk, hv
+        return out
+
+    def mode_table(name):
+        """K3's or K4's times per mode at phase 5's sites, beside their
+        bounds and the plain version's time."""
+        out = {}
+        for t in mode_times:
+            if t["kernel"] != name:
+                continue
+            b, h, n, s, d, nbytes, has_bias = t["shape"]
+            bound, by, _ = attention_bound(
+                b * h, n, s, d, nbytes, nbytes, 77 if s > 120 else 60,
+                32 if name == K3 else 8, True,
+                extra_bytes=b * s * 4 if has_bias else 0, pred=t["mode"])
+            out.setdefault(t["mode"], []).append(dict(
+                site=f"{t['site']} {(b, h, n, s, d)}",
+                contract=t["contract"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=bound, bound_by=by))
+            print(f"[time] {name} mode {t['mode']} {t['site']} "
+                  f"{(b, h, n, s, d)} {t['contract']}: {t['ms']:.3f} ms "
+                  f"(plain {t['plain_ms']:.1f} ms, bound {bound:.4f} ms by "
+                  f"{by})", flush=True)
         return out
 
     k3_sites = split_sites("K3", ta.fused_topk_attention)
     k4_sites = split_sites("K4", ta.fused_topk_attention_tiled)
+    k3_modes, k4_modes = mode_table(K3), mode_table(K4)
 
     k5_sites = []
     for (shape, dtype, *args), n in sorted(main_sites[K5].items(),
@@ -1018,13 +1262,15 @@ def main():
              replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:805",
              launches=main_launches[K3], max_abs_err=k3_err, ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
-             bound_by=k3["bound_by"], library_ms=None, sites=k3_sites),
+             bound_by=k3["bound_by"], library_ms=None, sites=k3_sites,
+             modes=k3_modes),
         dict(name=K4, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_split.cu",
              replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:654",
              launches=main_launches[K4], max_abs_err=k4_err, ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-             bound_by=k4["bound_by"], library_ms=None, sites=k4_sites),
+             bound_by=k4["bound_by"], library_ms=None, sites=k4_sites,
+             modes=k4_modes),
         dict(name=K5, route="cuda",
              source="mx_quantization_tpu_torch/csrc/ln_modulate_quantize.cu",
              replaces="mx_quantization_tpu/ops/kernels/quantize.py:205",

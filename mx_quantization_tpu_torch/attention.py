@@ -9,8 +9,10 @@ The flow is the reference's
 all inside one kernel: K2 (``fused_qkv_topk_attention``, self-attention from
 the fused qkv output) or K3 / K4 (``topk_attention``, split q/k/v with an
 optional key bias; K4 where N or S exceeds 512), all in
-``ops/kernels/topk_attention.py``.  Where the
-JAX package would leave its kernels for the XLA emulation path, the port
+``ops/kernels/topk_attention.py``.  K3 and K4 take every predictor of the
+JAX kernels, ELSA with the structured orthogonal projection
+(``predictors/elsa.py``) unless the caller passes its own.  Where the JAX
+package would leave its kernels for the XLA emulation path, the port
 raises: the emulation engine is not ported yet (ROADMAP.md).
 """
 
@@ -26,6 +28,7 @@ from .ops.kernels.topk_attention import (MAX_TILED_KEYS, MAX_TOKENS,
                                          QKV_GATE_TOKENS, QKV_PRED_MODES,
                                          fused_topk_attention,
                                          fused_topk_attention_qkv)
+from .predictors.elsa import orthogonal_matrix as _structured_matrix
 
 
 class TopKAttentionConfig(NamedTuple):
@@ -48,8 +51,8 @@ class TopKAttentionConfig(NamedTuple):
     contract: str = "exact"
 
 
-# the JAX kernel's predictors (the port's K3 serves ex_pred and
-# two_step_leading_ones and raises for the rest, naming ROADMAP.md)
+# the exponent-family predictors of the JAX kernels (ELSA takes them too,
+# gated separately: square attention only)
 _KERNEL_PRED_MODES = ("ex_pred", "two_step_leading_ones", "MXINT4",
                       "partial_Q", "partial_K", "true_ex", "threshold_ex")
 # element formats the kernels quantize (every grid point is exact in bf16)
@@ -129,11 +132,13 @@ def fused_qkv_topk_attention(qkv: torch.Tensor, num_heads: int, scale: float,
         **_kernel_elemwise_args(mx_specs), **_kernel_format_args(mx_specs))
 
 
-def _split_kernel(q, k, v, bias, scale, mx_specs, cfg) -> torch.Tensor:
+def _split_kernel(q, k, v, bias, scale, mx_specs, cfg,
+                  proj=None) -> torch.Tensor:
     """The split kernel entry (K3, or K4 for N or S over 512) where the JAX
-    package takes its kernel."""
+    package takes its kernel; ``proj`` is ELSA's projection."""
     return fused_topk_attention(
-        q, k, v, bias, k=cfg.k, scale=scale, block_size=mx_specs.block_size,
+        q, k, v, bias, proj, k=cfg.k, scale=scale,
+        block_size=mx_specs.block_size,
         scale_bits=mx_specs.effective_scale_bits(), approx=cfg.approx_flag,
         pred_mode=cfg.pred_mode, key_bits=cfg.key_bits,
         out_dtype=getattr(torch, cfg.out_dtype), contract=cfg.contract,
@@ -161,8 +166,9 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention for one (batch, heads, seq, dim) q and (batch, heads,
     keys, dim) k, v.  bias: optional additive mask (B, 1, 1, S), added to
     both the true and the predicted scores (the PixArt cross-attention
-    contract).  Returns (out, None), as the JAX package's kernel path
-    does."""
+    contract).  ``orthogonal_matrix`` is ELSA's (bits, D) projection;
+    without one, ELSA takes ``create_structured_orthogonal_matrix(D)``.
+    Returns (out, None), as the JAX package's kernel path does."""
     if not cfg.mx_quant or mx_specs is None:
         dt = torch.promote_types(q.dtype, k.dtype)
         s = _matmul32(q, k.transpose(-1, -2)).to(dt) * scale
@@ -183,13 +189,17 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _emulation_path(cfg, "unsupported bias shape, fp != 0, S > 4096, or "
                         "a non-kernel element format")
 
-    if cfg.approx_flag and cfg.pred_mode == "ELSA":
-        raise NotImplementedError(
-            "ELSA needs the ELSA mode of kernels K3 and K4, which is not "
-            "ported yet (ROADMAP.md)")
+    # ELSA runs in the kernels for square attention only: the reference
+    # takes the key norms at the QUERY index (JAX ``elsa_kernel_ok``)
+    elsa_ok = cfg.pred_mode == "ELSA" and q.shape[-2] == S
     if (_kernel_specs_ok(mx_specs, cfg) and bias_ok
             and S <= MAX_TILED_KEYS
-            and (cfg.pred_mode in _KERNEL_PRED_MODES or not cfg.approx_flag)):
-        return _split_kernel(q, k, v, bias, scale, mx_specs, cfg), None
+            and (cfg.pred_mode in _KERNEL_PRED_MODES or elsa_ok
+                 or not cfg.approx_flag)):
+        proj = None
+        if cfg.approx_flag and cfg.pred_mode == "ELSA":
+            proj = (orthogonal_matrix if orthogonal_matrix is not None else
+                    _structured_matrix(int(q.shape[-1]), q.device))
+        return _split_kernel(q, k, v, bias, scale, mx_specs, cfg, proj), None
     _emulation_path(cfg, "sparse_impl, bias shape, fp != 0, S > 4096, "
                     "element format, or a non-kernel predictor")

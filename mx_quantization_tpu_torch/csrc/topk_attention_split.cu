@@ -9,7 +9,10 @@
 // query-tiled long-sequence path (N or S over K3_MAX_TOKENS, S <=
 // K4_MAX_KEYS; body _topk_attn_kernel_tiled), which caches a (row, head)
 // cell's quantized K side and walks query tiles over it.  Predictors: none
-// (selection by the true scores), ex_pred and two_step_leading_ones.
+// (selection by the true scores) and all eight of the TPU kernel's:
+// ex_pred, two_step_leading_ones, MXINT4, partial_Q, partial_K, true_ex,
+// threshold_ex (_true_ex_approx, _threshold_ex_approx) and ELSA (the hash
+// of _prep_side and the score of _score_select_output).
 //
 // The bounds on the card: at PixArt-alpha 256^2's self-attention (200 rows
 // x 16 heads, N = S = 256, D = 72, f32 in and out) K3 reads q, k, v and
@@ -102,6 +105,32 @@
 // compiler contracts nothing.  Build without --use_fast_math: subnormals are
 // kept and expf is the precise one.
 //
+// The other predictors:
+//   * MXINT4, partial_Q, partial_K and threshold_ex on the int grids are, per
+//     element, a small integer code times a power of two per (row, block):
+//     MXINT4 the int4 grid point (|c| <= 7) of the element re-quantized from
+//     the same block maximum, partial the int8 grid point on its full side
+//     and +-1 (padded d 0) on the other, threshold_ex 0, +-1 or +-2 times
+//     2^(e - 1) (te <= e on the int grids).  They take ex_pred's route: the
+//     pre-pass writes k's codes (int8) and scales, q's go into mma operand
+//     registers, and one int8 mma per 32-d block gives each block's exact
+//     sum, scaled by q's then k's power of two, the blocks in order.
+//   * true_ex maps a zero element to +1, off any block grid, so it takes the
+//     CUDA-core kernel (the one of the MXFP grids) on every format: bf16
+//     operands, the products added in d order per block, the blocks in
+//     order, for its predictor and, on that kernel, its true score and PV.
+//     Every predictor of the MXFP grids takes the same operand route.
+//   * ELSA: the pre-pass hashes each key (bit b = sign of proj row b times
+//     the quantized key, the products rounded and added in d order) into
+//     four words and stores its norm sqrt(sum kv^2) (d order); each warp
+//     hashes its 16 query rows the same way from its quantized q; a pair's
+//     score is the norm of the key at the QUERY's index (the reference's
+//     quirk; 0 past the keys) times cos[hamming], hamming the popcount of
+//     the words' xor and cos a table of bits + 1 values that the wrapper
+//     passes (topk_attention.py _elsa_cos_table), read from shared memory.
+//     Within a row the norm is constant, so many keys tie; each tier's
+//     selection rule decides them as for every predictor.
+//
 // The bias goes onto the scaled true scores and onto the predictor scores,
 // before the padded keys are masked to -3e38.  Flush zeroes q, k, v and
 // probability blocks whose maximum is f32-subnormal.
@@ -120,6 +149,14 @@
 #ifndef MAX_HEAD_DIM
 #error "build with -DMAX_HEAD_DIM=<n> (ops/kernels/build.py passes it)"
 #endif
+// The wrapper builds this source once per part, -DSPLIT_PART=0 .. 4, all
+// nvcc started together: each part's library holds the host interface, the
+// pre-pass and the attention kernels of its part (part_of), so that the
+// eleven kernels compile side by side.  Without SPLIT_PART one library
+// holds them all.
+#ifndef SPLIT_PART
+#define SPLIT_PART -1
+#endif
 
 namespace {
 
@@ -132,32 +169,56 @@ constexpr long long kMaxSmem = 232448;         // 227 KB, a block's limit
 constexpr long long kTwoBlockSmem = 114688;    // what lets two blocks share an SM
 constexpr int kUnroll = 8;                     // pre-pass loads in flight per lane
 
-enum Pred { kNone = 0, kExPred = 1, kTwoStep = 2 };
+// How a kernel computes the predictor: kBlockInt is MXINT4, partial_Q,
+// partial_K and threshold_ex on the int grids (codes in int8 mma); kOperand
+// every predictor but ex_pred and ELSA on the CUDA-core kernel (bf16
+// operands)
+enum Pred { kNone = 0, kExPred = 1, kTwoStep = 2, kBlockInt = 3, kOperand = 4, kElsa = 5 };
+
+// The predictor modes, numbered as the wrapper numbers them (SPLIT_PRED_MODES)
+enum Mode {
+  mExPred = 0, mTwoStep = 1, mMxint4 = 2, mPartialQ = 3, mPartialK = 4, mTrueEx = 5,
+  mThreshold = 6, mElsa = 7
+};
+
+constexpr int kMaxBits = 128;  // ELSA hash bits: four words a row
 
 // The arrays of the K side, a bit each in a staging mask
-enum : int { kAKq = 1, kAKsc = 2, kAKpw = 4, kAKn = 8, kAKsg = 16, kAV = 32, kAVe = 64 };
+enum : int {
+  kAKq = 1, kAKsc = 2, kAKpw = 4, kAKn = 8, kAKsg = 16, kAV = 32, kAVe = 64, kAKc = 128,
+  kAKcs = 256, kAKh = 512
+};
 
 // Byte offsets of a cell's arrays in the workspace, and a cell's size.
 // INT formats: kq int8 [Sp][Dp]; ksc f32 [Sp][nb] 2^(ek - (mbits-2)); kpw
-// f32 [Sp][nb] ex_pred's 2^ek; kn int16 [Sp][Dp] two_step's n.  MXFP: kq
-// bf16 [Sp][Dp] values; kpw; ksg u32 [Sp][nb] sign masks; kn bf16 [Sp][Dp]
-// two_step's operands.  v transposed: the exact tier's INT formats int8
-// grid points [D8][Sp] with their exponents ve int16 [Sp/32][D8]; the
-// CUDA-core PV (serving, MXFP) bf16 values [D8][Sp].
+// f32 [Sp][nb] ex_pred's 2^ek; kn int16 [Sp][Dp] two_step's n; kc int8
+// [Sp][Dp] and kcs f32 [Sp][nb] the block-grid predictors' codes and
+// scales.  The CUDA-core kernel (MXFP, true_ex): kq bf16 [Sp][Dp] values;
+// kpw; ksg u32 [Sp][nb] sign masks; kn bf16 [Sp][Dp] the predictor's
+// operands.  ELSA: kh u32 [Sp][4] hash words, kno f32 [Sp] norms.  v
+// transposed: the exact tier's INT formats int8 grid points [D8][Sp] with
+// their exponents ve int16 [Sp/32][D8]; the CUDA-core PV (serving, and the
+// CUDA-core kernel) bf16 values [D8][Sp].
 struct Ws {
-  size_t kq, ksc, kpw, kn, ksg, v, ve, cell;
+  size_t kq, ksc, kpw, kn, ksg, kc, kcs, kh, kno, v, ve, cell;
 };
 
 __host__ __device__ inline Ws make_ws(int Sp, int Dp, int nb, int D8, int intm, int pred,
                                       int relaxed) {
-  const bool ex = pred == kExPred, two = pred == kTwoStep, exact_mma = intm && !relaxed;
+  const bool ex = pred == kExPred, exact_mma = intm && !relaxed;
+  const bool opn = pred == kTwoStep || pred == kOperand, bint = pred == kBlockInt;
+  const bool elsa = pred == kElsa;
   Ws w;
   size_t o = 0;
   w.kq = o;  o = align16(o + size_t(Sp) * Dp * (intm ? 1 : 2));
   w.ksc = o; o = align16(o + (intm ? size_t(Sp) * nb * 4 : 0));
   w.kpw = o; o = align16(o + (ex ? size_t(Sp) * nb * 4 : 0));
-  w.kn = o;  o = align16(o + (two ? size_t(Sp) * Dp * 2 : 0));
+  w.kn = o;  o = align16(o + (opn ? size_t(Sp) * Dp * 2 : 0));
   w.ksg = o; o = align16(o + (ex && !intm ? size_t(Sp) * nb * 4 : 0));
+  w.kc = o;  o = align16(o + (bint ? size_t(Sp) * Dp : 0));
+  w.kcs = o; o = align16(o + (bint ? size_t(Sp) * nb * 4 : 0));
+  w.kh = o;  o = align16(o + (elsa ? size_t(Sp) * 16 : 0));
+  w.kno = o; o = align16(o + (elsa ? size_t(Sp) * 4 : 0));
   w.v = o;   o = align16(o + size_t(Sp) * D8 * (exact_mma ? 1 : 2));
   w.ve = o;  o = align16(o + (exact_mma ? size_t(Sp / kBlock) * D8 * 2 : 0));
   w.cell = o;
@@ -169,6 +230,8 @@ struct Params {
   const void* k;
   const void* v;
   const float* bias;  // (B, S) or null
+  const float* proj;  // ELSA: (bits, D) or null
+  const float* cos_tab;  // ELSA: cos of each hamming distance, bits + 1
   void* out;
   unsigned char* ws;  // the workspace, B * H cells of w.cell bytes
   int B, H, N, S, D, Dp, nb, Sp, D8, nkb, ntq;
@@ -181,24 +244,27 @@ struct Params {
   // then the score and PV arrays restaged over them
   int kc, nchunks, W, tiles_per_block, qblocks, two_blocks, cache;
   int in_bf16, out_bf16, topk, key_bits, relaxed, bfloat16, intm, shift, pred, dense;
+  int mode, bits;  // the predictor mode (Mode); ELSA's hash bits
   int q_vec, k_vec, v_vec;
   float scale;
-  Fmt fmt;
+  Fmt fmt, fmt4;  // the activations' format; MXINT4's int4 grid
   Ws w;
 };
 
 // Shared memory: the staged key chunk, then each warp's area.  Chunk (INT):
-// kq [kc][kstr] (kstr = Dp + 16 bytes: the fragment loads hit distinct
-// banks), ksc and kpw [kc][nb], kn [kc][nstr] (nstr = 2 Dp + 32), ve
-// [kc/32][D8]; MXFP: kq, kn [kc][Dp] bf16, kpw, ksg; v [D8][vstr] (the
-// exact tier's INT int8, vstr = kc + 16 bytes; else bf16, vstr = kc + 4
-// elements: lane d's 8-byte loads of column d hit distinct banks); the
-// bias [kc].  A warp: the selection bits, a union of the radix select's
-// packed digits [Sp/16][2][32] words and {the chunk's probabilities, the PV
-// sums carried between chunks}, and (MXFP) its q rows.
+// kq and kc [kc][kstr] (kstr = Dp + 16 bytes: the fragment loads hit
+// distinct banks), ksc, kpw and kcs [kc][nb], kn [kc][nstr] (nstr = 2 Dp +
+// 32), ve [kc/32][D8]; the CUDA-core kernel: kq, kn [kc][Dp] bf16, kpw,
+// ksg; ELSA's kh [kc][4] words; v [D8][vstr] (the exact tier's INT int8,
+// vstr = kc + 16 bytes; else bf16, vstr = kc + 4 elements: lane d's 8-byte
+// loads of column d hit distinct banks); the bias [kc]; ELSA's cosines.  A
+// warp: the selection bits, a union of the radix select's packed digits
+// [Sp/16][2][32] words and {the chunk's probabilities, the PV sums carried
+// between chunks}, and its q rows (the CUDA-core kernel: values and
+// operands as bf16; ELSA on the int grids: values as f32, for the hash).
 struct Layout {
   int kstr, nstr, vstr;
-  size_t kq, ksc, kpw, kn, ksg, v, ve, bias, warp0, warp_bytes;
+  size_t kq, ksc, kpw, kn, ksg, kc, kcs, kh, cos, v, ve, bias, warp0, warp_bytes;
   size_t w_sel, w_u, w_acc, w_q, total;
   size_t selp, warpA, warp_bytesA, w_digits;  // cache: the selection phase
 };
@@ -206,8 +272,11 @@ struct Layout {
 __host__ __device__ inline Layout make_layout(const Params& p) {
   Layout l;
   const int kc = p.kc;
-  const bool ex = p.pred == kExPred, two = p.pred == kTwoStep, topk = !p.dense;
+  const bool ex = p.pred == kExPred, topk = !p.dense;
+  const bool opn = p.pred == kTwoStep || p.pred == kOperand, bint = p.pred == kBlockInt;
+  const bool elsa = p.pred == kElsa;
   const bool exact_mma = p.intm && !p.relaxed;
+  l.kc = l.kcs = l.kh = l.cos = 0;
   l.kstr = p.Dp + 16;
   l.nstr = 2 * p.Dp + 32;
   l.vstr = exact_mma ? kc + 16 : kc + 4;
@@ -244,11 +313,15 @@ __host__ __device__ inline Layout make_layout(const Params& p) {
   l.kq = o;   o = align16(o + (p.intm ? size_t(kc) * l.kstr : size_t(kc) * p.Dp * 2));
   l.ksc = o;  o = align16(o + (p.intm ? size_t(kc) * p.nb * 4 : 0));
   l.kpw = o;  o = align16(o + (ex ? size_t(kc) * p.nb * 4 : 0));
-  l.kn = o;   o = align16(o + (two ? size_t(kc) * (p.intm ? l.nstr : p.Dp * 2) : 0));
+  l.kn = o;   o = align16(o + (opn ? size_t(kc) * (p.intm ? l.nstr : p.Dp * 2) : 0));
   l.ksg = o;  o = align16(o + (ex && !p.intm ? size_t(kc) * p.nb * 4 : 0));
+  l.kc = o;   o = align16(o + (bint ? size_t(kc) * l.kstr : 0));
+  l.kcs = o;  o = align16(o + (bint ? size_t(kc) * p.nb * 4 : 0));
+  l.kh = o;   o = align16(o + (elsa ? size_t(kc) * 16 : 0));
   l.v = o;    o = align16(o + size_t(p.D8) * l.vstr * (exact_mma ? 1 : 2));
   l.ve = o;   o = align16(o + (exact_mma ? size_t(kc / kBlock) * p.D8 * 2 : 0));
   l.bias = o; o = align16(o + size_t(kc) * 4);
+  l.cos = o;  o = align16(o + (elsa ? size_t(kMaxBits + 1) * 4 : 0));
   l.warp0 = o;
   size_t w = 0;
   l.w_sel = w; w = align16(w + (topk ? sel_bytes : 0));
@@ -263,8 +336,8 @@ __host__ __device__ inline Layout make_layout(const Params& p) {
   l.w_acc = w + align16(probs);
   w = align16(w + (digits > align16(probs) + acc ? digits : align16(probs) + acc));
   l.w_q = w;
-  w = align16(w + (p.intm ? 0
-                          : size_t(kRows) * p.Dp * 2 * (two ? 2 : 1) + size_t(kRows) * p.nb * 8));
+  w = align16(w + (p.intm ? (elsa ? size_t(kRows) * p.Dp * 4 : 0)
+                          : size_t(kRows) * p.Dp * 2 * (opn ? 2 : 1) + size_t(kRows) * p.nb * 8));
   l.warp_bytes = w;
   l.total = o + size_t(p.W) * w;
   return l;
@@ -303,15 +376,84 @@ __device__ __forceinline__ int two_step_n(float val, int e) {
 }
 
 // MX-quantize one 32-element block held one element per lane (x, already
-// rounded to bf16 where bfloat=16); returns the stored (bf16) value and the
-// block's predictor exponent: the shared exponent for the int grids, the
-// quantized block's own exponent for the MXFP grids.
-__device__ __forceinline__ float quant_lane_block(float x, const Fmt& f, int& pexp) {
-  const unsigned mb = __reduce_max_sync(kFull, mag_bits(x));
+// rounded to bf16 where bfloat=16); returns the stored (bf16) value, the
+// block's predictor exponent (the shared exponent for the int grids, the
+// quantized block's own exponent for the MXFP grids) and its magnitude-bit
+// maximum mb.
+__device__ __forceinline__ float quant_lane_block(float x, const Fmt& f, int& pexp,
+                                                  unsigned& mb) {
+  mb = __reduce_max_sync(kFull, mag_bits(x));
   const int e = shared_exp(mb, f);
   const float val = quant_val(x, mb, e, f, false);
   pexp = f.ebits ? int(__reduce_max_sync(kFull, mag_bits(val)) >> 23) - 127 : e;
   return bf16_rne(val);
+}
+
+// floor(log2 |v|) from the bits of v (0 at v == 0): the predictors' te
+__device__ __forceinline__ int own_exp(float v) {
+  return v == 0.f ? 0 : int(mag_bits(v) >> 23) - 127;
+}
+
+// The block-grid predictors (kBlockInt: MXINT4, partial_Q, partial_K,
+// threshold_ex on the int grids) of one element of the q side (q_side) or
+// the k side: an integer code, |code| <= 127, that times the block's scale
+// (block_int_scale) is the TPU kernel's operand exactly.  x is the element
+// after the bf16 round, mb and e its block's magnitude maximum and shared
+// exponent, valid: d < D.  MXINT4: the int4 grid point from the same
+// maximum; partial: the int8 grid point on the named side, +-1 (zeros +,
+// padded d 0) on the other; threshold_ex: sign * 2^(th - base), th =
+// max(te, e - 1) and base = e - 1, each clamped to [-126, 127] (te <= e on
+// the int grids, so the code is 0, +-1 or +-2).
+__device__ __forceinline__ int block_int_code(int mode, const Fmt& f, const Fmt& f4, bool q_side,
+                                              float x, unsigned mb, int e, bool valid) {
+  if (mode == mMxint4) return quant_int(x, mb, shared_exp(mb, f4), f4, false);
+  if (mode == mThreshold) {
+    const float v = bf16_rne(quant_val(x, mb, e, f, false));
+    if (v == 0.f) return 0;
+    const int th = min(max(max(own_exp(v), e - 1), -126), 127);
+    const int base = min(max(e - 1, -126), 127);
+    return (v < 0.f ? -1 : 1) * (1 << (th - base));
+  }
+  const int n = quant_int(x, mb, e, f, false);
+  if ((mode == mPartialQ) == q_side) return n;
+  return valid ? (n < 0 ? -1 : 1) : 0;
+}
+
+__device__ __forceinline__ float block_int_scale(int mode, const Fmt& f4, int shift, bool q_side,
+                                                 unsigned mb, int e) {
+  if (mode == mMxint4) return pow2_sub(shared_exp(mb, f4) - (f4.mbits - 2));
+  if (mode == mThreshold) return pow2f(min(max(e - 1, -126), 127));
+  if ((mode == mPartialQ) == q_side) return pow2_sub(e - shift);
+  return pow2f(min(max(e, -126), 127));
+}
+
+// The predictor operand on the CUDA-core kernel (every predictor but
+// ex_pred and ELSA on the MXFP grids, true_ex on every grid), exact in
+// bf16: from an element's quantized value val (as stored), its block's
+// predictor exponent pe, the element after the bf16 round x with its
+// block's magnitude maximum mb (MXINT4 re-quantizes the original side) and
+// valid: d < D (exp-sign operands mask the padded d; true_ex maps a zero
+// element to +1)
+__device__ __forceinline__ float fp_operand(int mode, const Fmt& f4, bool q_side, float val,
+                                            int pe, float x, unsigned mb, bool valid) {
+  switch (mode) {
+    case mTwoStep: return two_step_operand(val, pe);
+    case mMxint4: return bf16_rne(quant_val(x, mb, shared_exp(mb, f4), f4, false));
+    case mThreshold: {
+      if (val == 0.f) return 0.f;
+      const float pw = pow2f(min(max(max(own_exp(val), pe - 1), -126), 127));
+      return val < 0.f ? -pw : pw;
+    }
+    case mTrueEx: {
+      const float pw = pow2f(min(max(own_exp(val), -126), 127));
+      return valid ? (val < 0.f ? -pw : pw) : 0.f;
+    }
+    default: {  // partial_Q, partial_K
+      if ((mode == mPartialQ) == q_side) return val;
+      const float pw = pow2f(min(max(pe, -126), 127));
+      return valid ? (val < 0.f ? -pw : pw) : 0.f;
+    }
+  }
 }
 
 // Slot of key kk (0..31) within its 32-key block in the exact tier's v:
@@ -402,16 +544,17 @@ __device__ __forceinline__ void load4(const T* src, int n, bool vec, float (&x)[
 // k on the int grids: eight lanes per (key, 32-d block), four d each, so a
 // warp step quantizes four blocks (the block maximum a reduction over the
 // eight lanes) and stores four grid points (and two_step's n) at once
-template <typename T>
+template <typename T, int PRED>
 __device__ __forceinline__ void prepass_k_int(const Params& p, unsigned char* ws, int cell,
                                               int kb, int lane) {
   constexpr int kSteps = 2;  // warp steps whose loads are in flight together
   const int gi = lane >> 3, sub = lane & 7;
   const bool round_inputs = p.bfloat16 && !p.in_bf16;
-  const bool ex = p.pred == kExPred, two = p.pred == kTwoStep;
+  constexpr bool ex = PRED == kExPred, two = PRED == kTwoStep, bint = PRED == kBlockInt;
   const T* src = static_cast<const T*>(p.k);
   float* ksc = reinterpret_cast<float*>(ws + p.w.ksc);
   float* kpw = reinterpret_cast<float*>(ws + p.w.kpw);
+  float* kcs = reinterpret_cast<float*>(ws + p.w.kcs);
   const int pairs = kBlock * p.nb;  // (key, block) pairs: a multiple of 32
   for (int u0 = 0; u0 < pairs; u0 += 4 * kSteps) {
     float x[kSteps][4];
@@ -438,10 +581,13 @@ __device__ __forceinline__ void prepass_k_int(const Params& p, unsigned char* ws
       mb = max(mb, __shfl_xor_sync(kFull, mb, 2));
       mb = max(mb, __shfl_xor_sync(kFull, mb, 4));
       const int e = shared_exp(mb, p.fmt);
-      unsigned w = 0u, n01 = 0u, n23 = 0u;
+      unsigned w = 0u, n01 = 0u, n23 = 0u, cw = 0u;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         w |= (unsigned(quant_int(x[v][i], mb, e, p.fmt, false)) & 0xffu) << (8 * i);
+        if (bint)
+          cw |= (unsigned(block_int_code(p.mode, p.fmt, p.fmt4, false, x[v][i], mb, e,
+                                         d0 + i < p.D)) & 0xffu) << (8 * i);
         if (two) {
           const float val = bf16_rne(quant_val(x[v][i], mb, e, p.fmt, false));
           const unsigned n = unsigned(two_step_n(val, e)) & 0xffffu;
@@ -453,14 +599,59 @@ __device__ __forceinline__ void prepass_k_int(const Params& p, unsigned char* ws
       if (two)
         *reinterpret_cast<uint2*>(ws + p.w.kn + (size_t(s) * p.Dp + d0) * 2) =
             make_uint2(n01, n23);
+      if (bint) *reinterpret_cast<unsigned*>(ws + p.w.kc + size_t(s) * p.Dp + d0) = cw;
       if (sub == 0) {
         ksc[s * p.nb + blk] = pow2_sub(e - p.shift);
         if (ex) kpw[s * p.nb + blk] = pow2f(min(max(e, -126), 127));
+        if (bint) kcs[s * p.nb + blk] = block_int_scale(p.mode, p.fmt4, p.shift, false, mb, e);
       }
     }
   }
 }
 
+// ELSA's hash words and norm of key s = 32 kb + lane from its quantized
+// values, which this warp has just written to the workspace: bit b is proj
+// row b times the key (products rounded, added in d order) >= 0, the norm
+// sqrt(sum kv^2) in d order
+__device__ __forceinline__ void prepass_elsa(const Params& p, unsigned char* ws, int kb,
+                                             int lane) {
+  const int s = kb * kBlock + lane;
+  const signed char* kq = reinterpret_cast<const signed char*>(ws + p.w.kq) + size_t(s) * p.Dp;
+  const __nv_bfloat16* kf = reinterpret_cast<const __nv_bfloat16*>(ws + p.w.kq) +
+                            size_t(s) * p.Dp;
+  const float* ksc = reinterpret_cast<const float*>(ws + p.w.ksc) + size_t(s) * p.nb;
+  auto val = [&](int d) {
+    return p.intm ? bf16_rne(__fmul_rn(float(kq[d]), ksc[d / kBlock]))
+                  : __bfloat162float(kf[d]);
+  };
+  float nsum = 0.f;
+  unsigned hw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    if (32 * w >= p.bits) break;  // uniform
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int d = 0; d < p.D; ++d) {
+      const float x = val(d);
+      if (w == 0) nsum = __fadd_rn(nsum, __fmul_rn(x, x));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int b = min(32 * w + i, p.bits - 1);
+        acc[i] = __fadd_rn(acc[i], __fmul_rn(__ldg(p.proj + size_t(b) * p.D + d), x));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (32 * w + i < p.bits && acc[i] >= 0.f) hw[w] |= 1u << i;
+  }
+  reinterpret_cast<uint4*>(ws + p.w.kh)[s] = make_uint4(hw[0], hw[1], hw[2], hw[3]);
+  reinterpret_cast<float*>(ws + p.w.kno)[s] = sqrtf(nsum);
+}
+
+// One instantiation per predictor kind, so that each holds only its own
+// arrays' code and registers (ELSA's hashing, above all, needs many)
+template <int PRED>
 __global__ void __launch_bounds__(256) split_prepass_kernel(const Params p) {
   const int lane = threadIdx.x & 31;
   const int task = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -468,14 +659,14 @@ __global__ void __launch_bounds__(256) split_prepass_kernel(const Params p) {
   const int cell = task / p.nkb, kb = task - cell * p.nkb;
   unsigned char* ws = p.ws + size_t(cell) * p.w.cell;
   const bool round_inputs = p.bfloat16 && !p.in_bf16;
-  const bool ex = p.pred == kExPred, two = p.pred == kTwoStep;
+  constexpr bool ex = PRED == kExPred, opn = PRED == kOperand;
   float* kpw = reinterpret_cast<float*>(ws + p.w.kpw);
   unsigned* ksg = reinterpret_cast<unsigned*>(ws + p.w.ksg);
   __nv_bfloat16* kf = reinterpret_cast<__nv_bfloat16*>(ws + p.w.kq);
   __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(ws + p.w.kn);
   if (p.intm) {
-    if (p.in_bf16) prepass_k_int<__nv_bfloat16>(p, ws, cell, kb, lane);
-    else prepass_k_int<float>(p, ws, cell, kb, lane);
+    if (p.in_bf16) prepass_k_int<__nv_bfloat16, PRED>(p, ws, cell, kb, lane);
+    else prepass_k_int<float, PRED>(p, ws, cell, kb, lane);
   }
   // k (MXFP): one (key, 32-d block) per step, lane l holding d = 32 blk + l
   const int tasks = p.intm ? 0 : kBlock * p.nb;
@@ -496,7 +687,8 @@ __global__ void __launch_bounds__(256) split_prepass_kernel(const Params p) {
       const int s = kb * kBlock + tt / p.nb, blk = tt % p.nb, d = blk * kBlock + lane;
       const float x = round_inputs ? bf16_round_away(xs[u]) : xs[u];
       int pe;
-      const float val = quant_lane_block(x, p.fmt, pe);
+      unsigned mb;
+      const float val = quant_lane_block(x, p.fmt, pe, mb);
       kf[size_t(s) * p.Dp + d] = __float2bfloat16_rn(val);
       if (ex) {
         const unsigned neg = __ballot_sync(kFull, val < 0.f);  // zeros count as +
@@ -505,8 +697,14 @@ __global__ void __launch_bounds__(256) split_prepass_kernel(const Params p) {
           kpw[s * p.nb + blk] = pow2f(min(max(pe, -126), 127));
         }
       }
-      if (two) kt[size_t(s) * p.Dp + d] = __float2bfloat16_rn(two_step_operand(val, pe));
+      if (opn)
+        kt[size_t(s) * p.Dp + d] =
+            __float2bfloat16_rn(fp_operand(p.mode, p.fmt4, false, val, pe, x, mb, d < p.D));
     }
+  }
+  if constexpr (PRED == kElsa) {
+    __syncwarp();  // the warp's k values are in the workspace
+    prepass_elsa(p, ws, kb, lane);
   }
   if (p.in_bf16) prepass_v<__nv_bfloat16>(p, ws, cell, kb, lane);
   else prepass_v<float>(p, ws, cell, kb, lane);
@@ -520,8 +718,10 @@ __device__ __forceinline__ int score_mask(const Params& p) {
 }
 
 __device__ __forceinline__ int select_mask(const Params& p) {
-  if (p.pred == kTwoStep) return kAKn;
+  if (p.pred == kTwoStep || p.pred == kOperand) return kAKn;
   if (p.pred == kExPred) return p.intm ? kAKq | kAKpw : kAKsg | kAKpw;
+  if (p.pred == kBlockInt) return kAKc | kAKcs;
+  if (p.pred == kElsa) return kAKh;
   return score_mask(p);
 }
 
@@ -563,6 +763,9 @@ __device__ __forceinline__ void stage_chunk(const Params& p, const Layout& L, un
     if (p.intm) copy(p.w.kn + size_t(s0) * p.Dp * 2, p.Dp * 2, L.kn, L.nstr, ck, p.Dp * 2);
     else copy(p.w.kn + size_t(s0) * p.Dp * 2, 0, L.kn, 0, 1, ck * p.Dp * 2);
   }
+  if (mask & kAKc) copy(p.w.kc + size_t(s0) * p.Dp, p.Dp, L.kc, L.kstr, ck, p.Dp);
+  if (mask & kAKcs) copy(p.w.kcs + size_t(s0) * nbb, 0, L.kcs, 0, 1, ck * nbb);
+  if (mask & kAKh) copy(p.w.kh + size_t(s0) * 16, 0, L.kh, 0, 1, ck * 16);
   if (mask & kAV) {
     if (p.intm && !p.relaxed) copy(p.w.v + s0, p.Sp, L.v, L.vstr, p.D8, ck);
     else copy(p.w.v + size_t(s0) * 2, p.Sp * 2, L.v, L.vstr * 2, p.D8, ck * 2);
@@ -599,9 +802,46 @@ struct RowTile {
   unsigned sa[kMaxNb][4];  // INT ex_pred: their signs as +-1, padded d zero
   unsigned nh[kMaxNb][4];  // INT two_step: n's high bytes (s8)
   unsigned nl[kMaxNb][4];  // INT two_step: n's low bytes (u8)
+  unsigned ca[kMaxNb][4];  // INT block-grid predictors: q's codes (s8)
   float pq[2][kMaxNb];     // 2^(eq - (mbits-2))
   float pwq[2][kMaxNb];    // ex_pred's 2^eq
+  float cs[2][kMaxNb];     // the block-grid predictors' scales of q
+  unsigned qh[2][4];       // ELSA: the rows' hash words
+  float nrm[2];            // ELSA: the norms of the keys at the rows' indices
 };
+
+// ELSA's hash words of the warp's 16 query rows from their quantized values
+// vals [16][Dp] in its shared memory (T: float or bf16): lane i computes bit
+// 32 w + i of every row, proj row times the values (products rounded, added
+// in d order) >= 0, and a ballot makes the word; lane (g, t) keeps rows g
+// and g + 8, and the norms of the keys at their indices (0 past the keys)
+template <typename T>
+__device__ __forceinline__ void elsa_q(const Params& p, const unsigned char* ws, const T* vals,
+                                       RowTile& rt, int lane) {
+  const int g = lane >> 2;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    rt.qh[0][w] = rt.qh[1][w] = 0u;
+    if (32 * w >= p.bits) continue;  // uniform
+    const int b = 32 * w + lane;
+    const float* pr = p.proj + size_t(min(b, p.bits - 1)) * p.D;
+    for (int r = 0; r < kRows; ++r) {
+      float acc = 0.f;
+      for (int d = 0; d < p.D; ++d) {
+        float x;
+        if constexpr (sizeof(T) == 4) x = vals[r * p.Dp + d];
+        else x = __bfloat162float(vals[r * p.Dp + d]);
+        acc = __fadd_rn(acc, __fmul_rn(__ldg(pr + d), x));
+      }
+      const unsigned word = __ballot_sync(kFull, b < p.bits && acc >= 0.f);
+      if (r == g) rt.qh[0][w] = word;
+      if (r == g + 8) rt.qh[1][w] = word;
+    }
+  }
+  const float* kno = reinterpret_cast<const float*>(ws + p.w.kno);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rt.nrm[r] = rt.row[r] < p.Sp ? kno[rt.row[r]] : 0.f;
+}
 
 // q (INT formats): the four values of row n at d0 .. d0 + 3, zero past D
 // and N (one 8- or 16-byte load where aligned)
@@ -632,8 +872,10 @@ __device__ __forceinline__ void q_chunk(const Params& p, int cell, int n, int d0
 // registers, the next block's loads in flight while one block is quantized;
 // the block maximum is a quad reduction
 template <int PRED, typename T>
-__device__ __forceinline__ void load_q_int(const Params& p, int cell, RowTile& rt, int t) {
+__device__ __forceinline__ void load_q_int(const Params& p, int cell, RowTile& rt, int t,
+                                           unsigned char* wq) {
   const bool round_inputs = p.bfloat16 && !p.in_bf16;
+  const int g = (threadIdx.x & 31) >> 2;
   float x[2][4][4];
 #pragma unroll
   for (int blk = 0; blk <= kMaxNb; ++blk) {
@@ -661,10 +903,11 @@ __device__ __forceinline__ void load_q_int(const Params& p, int cell, RowTile& r
       const int e = shared_exp(mb, p.fmt);
       rt.pq[r][qb] = pow2_sub(e - p.shift);
       if (PRED == kExPred) rt.pwq[r][qb] = pow2f(min(max(e, -126), 127));
+      if (PRED == kBlockInt) rt.cs[r][qb] = block_int_scale(p.mode, p.fmt4, p.shift, true, mb, e);
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int rr = 2 * hf + r, d0 = qb * kBlock + hf * 16 + 4 * t;
-        unsigned w = 0u, m = 0u, wh = 0u, wl = 0u;
+        unsigned w = 0u, m = 0u, wh = 0u, wl = 0u, cw = 0u;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           w |= (unsigned(quant_int(xq[rr][i], mb, e, p.fmt, false)) & 0xffu) << (8 * i);
@@ -674,6 +917,12 @@ __device__ __forceinline__ void load_q_int(const Params& p, int cell, RowTile& r
             wl |= (unsigned(n) & 0xffu) << (8 * i);
             wh |= (unsigned(n >> 8) & 0xffu) << (8 * i);
           }
+          if (PRED == kBlockInt)
+            cw |= (unsigned(block_int_code(p.mode, p.fmt, p.fmt4, true, xq[rr][i], mb, e,
+                                           d0 + i < p.D)) & 0xffu) << (8 * i);
+          if (PRED == kElsa)  // the quantized values, for the hash
+            reinterpret_cast<float*>(wq)[(g + 8 * r) * p.Dp + d0 + i] =
+                bf16_rne(quant_val(xq[rr][i], mb, e, p.fmt, false));
         }
         rt.qa[qb][rr] = w;
         if (PRED == kExPred) rt.sa[qb][rr] = sign_bytes(w) & m;
@@ -681,21 +930,22 @@ __device__ __forceinline__ void load_q_int(const Params& p, int cell, RowTile& r
           rt.nh[qb][rr] = wh;
           rt.nl[qb][rr] = wl;
         }
+        if (PRED == kBlockInt) rt.ca[qb][rr] = cw;
       }
     }
   }
 }
 
-// q (MXFP formats): the warp's 16 rows quantized into its shared memory as
-// bf16 values [16][Dp], two_step operands [16][Dp], sign masks and
-// predictor exponents [16][nb], one (row, block) at a time
+// q (the CUDA-core kernel): the warp's 16 rows quantized into its shared
+// memory as bf16 values [16][Dp], predictor operands [16][Dp], sign masks
+// and predictor exponents [16][nb], one (row, block) at a time
 template <int PRED>
 __device__ __forceinline__ void load_q_fp(const Params& p, int cell, int r0, unsigned char* wq,
                                           RowTile& rt, int lane, int g) {
   __nv_bfloat16* qf = reinterpret_cast<__nv_bfloat16*>(wq);
   __nv_bfloat16* qt = qf + kRows * p.Dp;
   unsigned* qsg = reinterpret_cast<unsigned*>(wq + size_t(kRows) * p.Dp * 2 *
-                                                       (PRED == kTwoStep ? 2 : 1));
+                                                       (PRED == kOperand ? 2 : 1));
   int* qpe = reinterpret_cast<int*>(qsg + kRows * p.nb);
   const bool round_inputs = p.bfloat16 && !p.in_bf16;
   for (int r = 0; r < kRows; ++r)
@@ -706,9 +956,12 @@ __device__ __forceinline__ void load_q_fp(const Params& p, int cell, int r0, uns
                     : 0.f;
       if (round_inputs) x = bf16_round_away(x);
       int pe;
-      const float val = quant_lane_block(x, p.fmt, pe);
+      unsigned mb;
+      const float val = quant_lane_block(x, p.fmt, pe, mb);
       qf[r * p.Dp + d] = __float2bfloat16_rn(val);
-      if (PRED == kTwoStep) qt[r * p.Dp + d] = __float2bfloat16_rn(two_step_operand(val, pe));
+      if (PRED == kOperand)
+        qt[r * p.Dp + d] =
+            __float2bfloat16_rn(fp_operand(p.mode, p.fmt4, true, val, pe, x, mb, d < p.D));
       const unsigned neg = __ballot_sync(kFull, val < 0.f);  // zeros count as +
       if (lane == 0) {
         qsg[r * p.nb + blk] = neg;
@@ -789,8 +1042,11 @@ __device__ __forceinline__ void score_tile(const Params& p, const Layout& L,
 // cnt * (2^eq * 2^ek), cnt the +-1 dot product over the valid d (INT: an
 // mma on the signs; MXFP: popcounts of the sign masks), blocks in order.
 // two_step (INT): sum over every d of nq * nk, exact in int64 from four
-// byte-plane mma, rounded to f32 once, times 2^-12; (MXFP) the operands'
-// f32 products in d order per block, blocks in order.
+// byte-plane mma, rounded to f32 once, times 2^-12.  The block-grid
+// predictors (INT): per block the codes' mma, times q's scale, then k's,
+// blocks in order.  The CUDA-core kernel's operands: f32 products in d
+// order per block, blocks in order.  ELSA: the norm at the row times the
+// cosine of the hash words' hamming distance.
 template <bool kInt, int PRED>
 __device__ __forceinline__ void pred_tile(const Params& p, const Layout& L,
                                           const unsigned char* smem, const unsigned char* wq,
@@ -827,46 +1083,76 @@ __device__ __forceinline__ void pred_tile(const Params& p, const Layout& L,
           v[i] = blk == 0 ? term : __fadd_rn(v[i], term);
         }
       }
-  } else if constexpr (PRED == kTwoStep) {
-    if constexpr (kInt) {
-      int hh[4] = {0, 0, 0, 0}, hl[4] = {0, 0, 0, 0}, lh[4] = {0, 0, 0, 0}, ll[4] = {0, 0, 0, 0};
-      const unsigned char* kr = smem + L.kn + size_t(n0 + g) * L.nstr;
+  } else if constexpr (PRED == kTwoStep) {  // the int grids only
+    int hh[4] = {0, 0, 0, 0}, hl[4] = {0, 0, 0, 0}, lh[4] = {0, 0, 0, 0}, ll[4] = {0, 0, 0, 0};
+    const unsigned char* kr = smem + L.kn + size_t(n0 + g) * L.nstr;
 #pragma unroll
-      for (int blk = 0; blk < kMaxNb; ++blk)
-        if (blk < p.nb) {
-          // n of d = 32 blk + 4 t .. + 3 and 16 more: int16 little-endian
-          const uint2 w0 = *reinterpret_cast<const uint2*>(kr + blk * 64 + 8 * t);
-          const uint2 w1 = *reinterpret_cast<const uint2*>(kr + blk * 64 + 32 + 8 * t);
-          const unsigned l0 = __byte_perm(w0.x, w0.y, 0x6420), h0 = __byte_perm(w0.x, w0.y, 0x7531);
-          const unsigned l1 = __byte_perm(w1.x, w1.y, 0x6420), h1 = __byte_perm(w1.x, w1.y, 0x7531);
-          mma_acc_ss(hh, rt.nh[blk], h0, h1);
-          mma_acc_su(hl, rt.nh[blk], l0, l1);
-          mma_acc_us(lh, rt.nl[blk], h0, h1);
-          mma_acc_uu(ll, rt.nl[blk], l0, l1);
-        }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long x = (static_cast<long long>(hh[i]) << 16) +
-                            (static_cast<long long>(hl[i] + lh[i]) << 8) + ll[i];
-        v[i] = __fmul_rn(__ll2float_rn(x), 0x1p-12f);
+    for (int blk = 0; blk < kMaxNb; ++blk)
+      if (blk < p.nb) {
+        // n of d = 32 blk + 4 t .. + 3 and 16 more: int16 little-endian
+        const uint2 w0 = *reinterpret_cast<const uint2*>(kr + blk * 64 + 8 * t);
+        const uint2 w1 = *reinterpret_cast<const uint2*>(kr + blk * 64 + 32 + 8 * t);
+        const unsigned l0 = __byte_perm(w0.x, w0.y, 0x6420), h0 = __byte_perm(w0.x, w0.y, 0x7531);
+        const unsigned l1 = __byte_perm(w1.x, w1.y, 0x6420), h1 = __byte_perm(w1.x, w1.y, 0x7531);
+        mma_acc_ss(hh, rt.nh[blk], h0, h1);
+        mma_acc_su(hl, rt.nh[blk], l0, l1);
+        mma_acc_us(lh, rt.nl[blk], h0, h1);
+        mma_acc_uu(ll, rt.nl[blk], l0, l1);
       }
-    } else {
-      const __nv_bfloat16* qt = reinterpret_cast<const __nv_bfloat16*>(wq) + kRows * p.Dp;
-      const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(smem + L.kn);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat16* qr = qt + (g + 8 * (i >> 1)) * p.Dp;
-        const __nv_bfloat16* kr = kt + (n0 + 2 * t + (i & 1)) * p.Dp;
-        float tot = 0.f;
-        for (int blk = 0; blk < p.nb; ++blk) {
-          const int nv = min(kBlock, p.D - kBlock * blk);
-          float acc = 0.f;
-          for (int dd = 0; dd < nv; ++dd)
-            acc = __fmaf_rn(__bfloat162float(qr[kBlock * blk + dd]),
-                            __bfloat162float(kr[kBlock * blk + dd]), acc);
-          tot = blk == 0 ? acc : __fadd_rn(tot, acc);
+    for (int i = 0; i < 4; ++i) {
+      const long long x = (static_cast<long long>(hh[i]) << 16) +
+                          (static_cast<long long>(hl[i] + lh[i]) << 8) + ll[i];
+      v[i] = __fmul_rn(__ll2float_rn(x), 0x1p-12f);
+    }
+  } else if constexpr (PRED == kBlockInt) {
+    const unsigned* kw = reinterpret_cast<const unsigned*>(smem + L.kc);
+    const float* kcs = reinterpret_cast<const float*>(smem + L.kcs);
+    const int kstrw = L.kstr / 4;
+#pragma unroll
+    for (int blk = 0; blk < kMaxNb; ++blk)
+      if (blk < p.nb) {
+        int c[4];
+        mma_s8(c, rt.ca[blk], kw[(n0 + g) * kstrw + blk * 8 + t],
+               kw[(n0 + g) * kstrw + blk * 8 + 4 + t]);
+        const float pk0 = kcs[(n0 + 2 * t) * p.nb + blk];
+        const float pk1 = kcs[(n0 + 2 * t + 1) * p.nb + blk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float term =
+              __fmul_rn(__fmul_rn(i2f_small(c[i]), rt.cs[i >> 1][blk]), (i & 1) ? pk1 : pk0);
+          v[i] = blk == 0 ? term : __fadd_rn(v[i], term);
         }
-        v[i] = tot;
+      }
+  } else if constexpr (PRED == kOperand) {
+    const __nv_bfloat16* qt = reinterpret_cast<const __nv_bfloat16*>(wq) + kRows * p.Dp;
+    const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(smem + L.kn);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat16* qr = qt + (g + 8 * (i >> 1)) * p.Dp;
+      const __nv_bfloat16* kr = kt + (n0 + 2 * t + (i & 1)) * p.Dp;
+      float tot = 0.f;
+      for (int blk = 0; blk < p.nb; ++blk) {
+        const int nv = min(kBlock, p.D - kBlock * blk);
+        float acc = 0.f;
+        for (int dd = 0; dd < nv; ++dd)
+          acc = __fmaf_rn(__bfloat162float(qr[kBlock * blk + dd]),
+                          __bfloat162float(kr[kBlock * blk + dd]), acc);
+        tot = blk == 0 ? acc : __fadd_rn(tot, acc);
+      }
+      v[i] = tot;
+    }
+  } else if constexpr (PRED == kElsa) {
+    const uint4* kh = reinterpret_cast<const uint4*>(smem + L.kh);
+    const float* tab = reinterpret_cast<const float*>(smem + L.cos);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint4 h = kh[n0 + 2 * t + e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ham = __popc(rt.qh[r][0] ^ h.x) + __popc(rt.qh[r][1] ^ h.y) +
+                        __popc(rt.qh[r][2] ^ h.z) + __popc(rt.qh[r][3] ^ h.w);
+        v[2 * r + e] = __fmul_rn(rt.nrm[r], tab[ham]);
       }
     }
   }
@@ -1193,16 +1479,21 @@ __device__ __forceinline__ void pv_cores(const Params& p, const Layout& L,
 // q of the 16-row tile at r0: INT formats into the operand registers,
 // MXFP into the warp's shared memory wq
 template <bool kInt, int PRED>
-__device__ __forceinline__ void load_q(const Params& p, int cell, int r0, unsigned char* wq,
-                                       RowTile& rt, int lane) {
+__device__ __forceinline__ void load_q(const Params& p, const unsigned char* ws, int cell, int r0,
+                                       unsigned char* wq, RowTile& rt, int lane) {
   const int g = lane >> 2, t = lane & 3;
   rt.row[0] = r0 + g;
   rt.row[1] = r0 + g + 8;
   if constexpr (kInt) {
-    if (p.in_bf16) load_q_int<PRED, __nv_bfloat16>(p, cell, rt, t);
-    else load_q_int<PRED, float>(p, cell, rt, t);
+    if (p.in_bf16) load_q_int<PRED, __nv_bfloat16>(p, cell, rt, t, wq);
+    else load_q_int<PRED, float>(p, cell, rt, t, wq);
   } else {
     load_q_fp<PRED>(p, cell, r0, wq, rt, lane, g);
+  }
+  if constexpr (PRED == kElsa) {
+    __syncwarp();  // the rows' quantized values are in wq
+    if constexpr (kInt) elsa_q(p, ws, reinterpret_cast<const float*>(wq), rt, lane);
+    else elsa_q(p, ws, reinterpret_cast<const __nv_bfloat16*>(wq), rt, lane);
   }
 }
 
@@ -1364,7 +1655,7 @@ __device__ __forceinline__ void row_tile(const Params& p, const Layout& L, unsig
                                          int b, int tile) {
   const int lane = threadIdx.x & 31;
   RowTile rt;
-  load_q<kInt, PRED>(p, cell, tile * kRows, wa + L.w_q, rt, lane);
+  load_q<kInt, PRED>(p, ws, cell, tile * kRows, wa + L.w_q, rt, lane);
   unsigned* selw = reinterpret_cast<unsigned*>(wa + L.w_sel);
   if (!p.dense)
     select_tile<kInt, PRED>(p, L, smem, ws, b, wa + L.w_q, rt, lane, selw,
@@ -1381,6 +1672,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
     split_topk_attention_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = make_layout(p);
+  if constexpr (PRED == kElsa) {  // the cosine of each hamming distance
+    float* tab = reinterpret_cast<float*>(smem + L.cos);
+    for (int i = threadIdx.x; i <= p.bits; i += blockDim.x) tab[i] = __ldg(p.cos_tab + i);
+    __syncthreads();
+  }
   const int warp = threadIdx.x >> 5;
   const int cell = blockIdx.x / p.qblocks, qblk = blockIdx.x - cell * p.qblocks;
   const int b = cell / p.H;
@@ -1398,7 +1694,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
     __syncthreads();
     for (int tile = t0 + warp; tile < t1; tile += p.W) {
       RowTile rt;
-      load_q<kInt, PRED>(p, cell, tile * kRows, nullptr, rt, lane);
+      load_q<kInt, PRED>(p, ws, cell, tile * kRows, nullptr, rt, lane);
       select_tile<kInt, PRED>(p, L, smem, ws, b, nullptr, rt, lane, selp + tile * sel_words,
                               reinterpret_cast<unsigned*>(wA + L.w_digits),
                               reinterpret_cast<int*>(wA));
@@ -1409,7 +1705,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
     __syncthreads();
     for (int tile = t0 + warp; tile < t1; tile += p.W) {
       RowTile rt;
-      load_q<kInt, PRED>(p, cell, tile * kRows, nullptr, rt, lane);
+      load_q<kInt, PRED>(p, ws, cell, tile * kRows, nullptr, rt, lane);
       softmax_pv<kInt, PRED>(p, L, smem, ws, wa, cell, b, rt, tile * kRows,
                              selp + tile * sel_words);
     }
@@ -1425,9 +1721,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
   }
 }
 
-inline int pred_kind(int approx, int pred_mode, int topk, int S) {
+// ex_pred and ELSA have their own routes on both kernels; true_ex, and
+// every other predictor on the MXFP grids, take the CUDA-core kernel's
+// operands; on the int grids two_step takes its byte planes and the rest
+// the block-grid codes
+inline int pred_kind(int approx, int mode, int topk, int S, int ebits) {
   if (topk >= S || !approx) return kNone;
-  return pred_mode == 1 ? kTwoStep : kExPred;
+  if (mode == mExPred) return kExPred;
+  if (mode == mElsa) return kElsa;
+  if (ebits != 0 || mode == mTrueEx) return kOperand;
+  return mode == mTwoStep ? kTwoStep : kBlockInt;
 }
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -1436,7 +1739,7 @@ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 inline Params make_params(int B, int H, int N, int S, int D, int in_bf16, int out_bf16,
                           int topk, float scale, int approx, int pred_mode, int key_bits,
                           int relaxed, int bfloat16, int flush, int ebits, int mbits, int emax,
-                          float max_norm, int scale_bits) {
+                          float max_norm, int scale_bits, int bits) {
   Params p = {};
   p.B = B; p.H = H; p.N = N; p.S = S; p.D = D;
   p.Dp = round_up(D < 8 ? 8 : D, kBlock);
@@ -1447,12 +1750,15 @@ inline Params make_params(int B, int H, int N, int S, int D, int in_bf16, int ou
   p.ntq = (N + kRows - 1) / kRows;
   p.in_bf16 = in_bf16; p.out_bf16 = out_bf16; p.topk = topk;
   p.key_bits = key_bits; p.relaxed = relaxed; p.bfloat16 = bfloat16;
-  p.intm = ebits == 0;
   p.shift = mbits - 2;
-  p.pred = pred_kind(approx, pred_mode, topk, S);
+  p.pred = pred_kind(approx, pred_mode, topk, S, ebits);
+  p.intm = ebits == 0 && p.pred != kOperand;
+  p.mode = pred_mode;
+  p.bits = bits;
   p.dense = topk >= S;
   p.scale = scale;
   p.fmt = make_fmt(ebits, mbits, emax, max_norm, scale_bits, flush);
+  p.fmt4 = make_fmt(0, 4, 0, 0.f, scale_bits, flush);  // MXINT4: JAX passes no ebits
   p.w = make_ws(p.Sp, p.Dp, p.nb, p.D8, p.intm, p.pred, relaxed);
   return p;
 }
@@ -1460,8 +1766,10 @@ inline Params make_params(int B, int H, int N, int S, int D, int in_bf16, int ou
 // K3 (tiled = 0): one block per cell, the K side staged once (in two
 // phases with the key cache for two_step on the int grids) where that
 // fits; K4, and K3 where it does not fit: blocks of W row tiles streaming
-// chunks of 256 or 128 keys, the most warps that fit.  false if nothing
-// fits.
+// chunks of 256 or 128 keys, the most warps that fit, then the larger
+// chunk (more warps first: at N = S = 4096 a warp's radix digits take 64
+// KB, and two warps over 128-key chunks ran 2.2x faster than one over 256).
+// false if nothing fits.
 inline bool configure(Params& p, int tiled) {
   p.two_blocks = 0;
   p.cache = 0;
@@ -1477,8 +1785,8 @@ inline bool configure(Params& p, int tiled) {
     }
   }
   const int kcs[2] = {256, 128};
-  for (int kc : kcs)
-    for (int W = kMaxWarps; W >= 1; W >>= 1) {
+  for (int W = kMaxWarps; W >= 1; W >>= 1)
+    for (int kc : kcs) {
       p.kc = p.Sp < kc ? p.Sp : kc;
       p.nchunks = (p.Sp + p.kc - 1) / p.kc;
       p.W = W;
@@ -1507,24 +1815,56 @@ cudaError_t start(const Params& p, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kInt>
+// The part of the build whose library holds the attention kernel of p
+// (topk_attention_split_part tells the wrapper): the int-grid kernels
+// without a predictor, with ex_pred, with two_step, with the block-grid
+// codes or ELSA; then every CUDA-core kernel
+inline int part_of(const Params& p) {
+  if (!p.intm) return 4;
+  return p.pred == kNone ? 0 : p.pred == kExPred ? 1 : p.pred == kTwoStep ? 2 : 3;
+}
+
+// Launch the attention kernel of p (of this build's part)
 cudaError_t start_pred(const Params& p, size_t smem, cudaStream_t stream) {
-  if (p.pred == kTwoStep) return start<kInt, kTwoStep, 1>(p, smem, stream);
-  if (p.pred == kExPred) return start<kInt, kExPred, 1>(p, smem, stream);
-  if (p.two_blocks) return start<kInt, kNone, 2>(p, smem, stream);
-  return start<kInt, kNone, 1>(p, smem, stream);
+#if SPLIT_PART == -1 || SPLIT_PART == 0
+  if (part_of(p) == 0)
+    return p.two_blocks ? start<true, kNone, 2>(p, smem, stream)
+                        : start<true, kNone, 1>(p, smem, stream);
+#endif
+#if SPLIT_PART == -1 || SPLIT_PART == 1
+  if (part_of(p) == 1) return start<true, kExPred, 1>(p, smem, stream);
+#endif
+#if SPLIT_PART == -1 || SPLIT_PART == 2
+  if (part_of(p) == 2) return start<true, kTwoStep, 1>(p, smem, stream);
+#endif
+#if SPLIT_PART == -1 || SPLIT_PART == 3
+  if (part_of(p) == 3)
+    return p.pred == kElsa ? start<true, kElsa, 1>(p, smem, stream)
+                           : start<true, kBlockInt, 1>(p, smem, stream);
+#endif
+#if SPLIT_PART == -1 || SPLIT_PART == 4
+  if (part_of(p) == 4) {
+    if (p.pred == kOperand) return start<false, kOperand, 1>(p, smem, stream);
+    if (p.pred == kExPred) return start<false, kExPred, 1>(p, smem, stream);
+    if (p.pred == kElsa) return start<false, kElsa, 1>(p, smem, stream);
+    return p.two_blocks ? start<false, kNone, 2>(p, smem, stream)
+                        : start<false, kNone, 1>(p, smem, stream);
+  }
+#endif
+  return cudaErrorInvalidValue;  // another part's kernel
 }
 
 }  // namespace
 
 // Shared memory the kernel (K3: tiled = 0; K4: tiled = 1) needs, or 0 if it
-// cannot take the shapes.  pred_mode: 0 ex_pred, 1 two_step_leading_ones.
+// cannot take the shapes.  pred_mode: 0 ex_pred, 1 two_step_leading_ones,
+// 2 MXINT4, 3 partial_Q, 4 partial_K, 5 true_ex, 6 threshold_ex, 7 ELSA.
 extern "C" long long topk_attention_split_smem_bytes(int N, int S, int D, int topk, int approx,
                                                      int pred_mode, int key_bits, int relaxed,
                                                      int ebits, int tiled) {
-  if (!shapes_ok(N, S, D, tiled) || topk < 1) return 0;
+  if (!shapes_ok(N, S, D, tiled) || topk < 1 || pred_mode < 0 || pred_mode > mElsa) return 0;
   Params p = make_params(1, 1, N, S, D, 0, 0, topk, 1.f, approx, pred_mode, key_bits, relaxed,
-                         0, 0, ebits, 8, 0, 0.f, 8);
+                         0, 0, ebits, 8, 0, 0.f, 8, kMaxBits);
   return configure(p, tiled) ? (long long)make_layout(p).total : 0;
 }
 
@@ -1533,28 +1873,44 @@ extern "C" long long topk_attention_split_workspace_bytes(int B, int H, int S, i
                                                           int approx, int pred_mode,
                                                           int relaxed, int ebits) {
   const Params p = make_params(B, H, 1, S, D, 0, 0, topk, 1.f, approx, pred_mode, 8, relaxed,
-                               0, 0, ebits, 8, 0, 0.f, 8);
+                               0, 0, ebits, 8, 0, 0.f, 8, kMaxBits);
   return (long long)B * H * (long long)p.w.cell;
+}
+
+// The part of the build (0 .. SPLIT_PARTS - 1) whose library launches the
+// call with these arguments; every part answers, -1 for arguments no part
+// takes.
+extern "C" int topk_attention_split_part(int S, int topk, int approx, int pred_mode,
+                                         int ebits) {
+  if (S < 1 || topk < 1 || pred_mode < 0 || pred_mode > mElsa) return -1;
+  return part_of(make_params(1, 1, 1, S, kBlock, 0, 0, topk, 1.f, approx, pred_mode, 8, 0, 0,
+                             0, ebits, 8, 0, 0.f, 8, kMaxBits));
 }
 
 // Launch K3 (tiled = 0) or K4 (tiled = 1) on `stream`: the pre-pass, then
 // the attention kernel; returns the cudaError_t of the launches (0 = ok).
-// bias: (B, S) float32 or null; ws: topk_attention_split_workspace_bytes.
+// bias: (B, S) float32 or null; ELSA: proj (bits, D) float32 and cos_tab
+// (bits + 1) float32, else null; ws: topk_attention_split_workspace_bytes.
 extern "C" int topk_attention_split(const void* q, const void* k, const void* v,
-                                    const float* bias, void* ws, void* out, int B, int H, int N,
-                                    int S, int D, int in_bf16, int out_bf16, int topk,
-                                    float scale, int approx, int pred_mode, int key_bits,
-                                    int relaxed, int bfloat16, int flush, int ebits, int mbits,
-                                    int emax, float max_norm, int scale_bits, int tiled,
-                                    void* stream) {
+                                    const float* bias, const float* proj, const float* cos_tab,
+                                    void* ws, void* out, int B, int H, int N, int S, int D,
+                                    int in_bf16, int out_bf16, int topk, float scale, int approx,
+                                    int pred_mode, int key_bits, int relaxed, int bfloat16,
+                                    int flush, int ebits, int mbits, int emax, float max_norm,
+                                    int scale_bits, int bits, int tiled, void* stream) {
   if (!shapes_ok(N, S, D, tiled) || B < 1 || H < 1 || topk < 1 || ws == nullptr ||
-      (key_bits != 8 && key_bits != 16 && key_bits != 32))
+      (key_bits != 8 && key_bits != 16 && key_bits != 32) || pred_mode < 0 ||
+      pred_mode > mElsa)
     return int(cudaErrorInvalidValue);
   Params p = make_params(B, H, N, S, D, in_bf16, out_bf16, topk, scale, approx, pred_mode,
                          key_bits, relaxed, bfloat16, flush, ebits, mbits, emax, max_norm,
-                         scale_bits);
-  if (!configure(p, tiled)) return int(cudaErrorInvalidValue);
+                         scale_bits, bits);
+  if (p.pred == kElsa && (proj == nullptr || cos_tab == nullptr || bits < 1 || bits > kMaxBits))
+    return int(cudaErrorInvalidValue);
+  if (!configure(p, tiled) || (SPLIT_PART != -1 && part_of(p) != SPLIT_PART))
+    return int(cudaErrorInvalidValue);
   p.q = q; p.k = k; p.v = v; p.bias = bias; p.out = out;
+  p.proj = proj; p.cos_tab = cos_tab;
   p.ws = static_cast<unsigned char*>(ws);
   auto aligned = [](const void* ptr, int m) {
     return (reinterpret_cast<uintptr_t>(ptr) & (m - 1)) == 0;
@@ -1563,11 +1919,16 @@ extern "C" int topk_attention_split(const void* q, const void* k, const void* v,
   p.k_vec = aligned(k, in_bf16 ? 8 : 16) && D % 4 == 0;
   p.v_vec = aligned(v, 16) && D % (in_bf16 ? 8 : 4) == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tasks = B * H * p.nkb;
-  split_prepass_kernel<<<(tasks + 7) / 8, 256, 0, st>>>(p);
+  const int blocks = (B * H * p.nkb + 7) / 8;
+  switch (p.pred) {
+    case kExPred: split_prepass_kernel<kExPred><<<blocks, 256, 0, st>>>(p); break;
+    case kTwoStep: split_prepass_kernel<kTwoStep><<<blocks, 256, 0, st>>>(p); break;
+    case kBlockInt: split_prepass_kernel<kBlockInt><<<blocks, 256, 0, st>>>(p); break;
+    case kOperand: split_prepass_kernel<kOperand><<<blocks, 256, 0, st>>>(p); break;
+    case kElsa: split_prepass_kernel<kElsa><<<blocks, 256, 0, st>>>(p); break;
+    default: split_prepass_kernel<kNone><<<blocks, 256, 0, st>>>(p);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const size_t smem = make_layout(p).total;
-  err = p.intm ? start_pred<true>(p, smem, st) : start_pred<false>(p, smem, st);
-  return int(err);
+  return int(start_pred(p, make_layout(p).total, st));
 }

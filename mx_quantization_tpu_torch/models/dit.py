@@ -285,13 +285,15 @@ def _qkv_split_t(x: torch.Tensor, qkv: nn.Module, mxs: MxSpecs, H: int,
 def dit_attention(attn: nn.Module, x: torch.Tensor, cfg: DiTConfig,
                   specs: Optional[MxSpecs], attn_cfg: TopKAttentionConfig,
                   x_prequantized: bool = False,
-                  qkv_layout: str = "fused") -> torch.Tensor:
+                  qkv_layout: str = "fused",
+                  orthogonal_matrix=None) -> torch.Tensor:
     """Self-attention, routed as the JAX package routes: with
     ``qkv_layout="split_t"``, where it applies, the split-emission
     projection and kernel K7; else the fused qkv kernel (K2) where it serves
     the config, else the split q/k/v entry (``topk_attention``: K3, or the
     unquantized attention).  ``x_prequantized``: x is already on the MX
-    grid (K5's output), so the qkv projection skips its quantize."""
+    grid (K5's output), so the qkv projection skips its quantize;
+    ``orthogonal_matrix``: ELSA's projection."""
     B, N, C = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     mxs = specs if attn_cfg.mx_quant else None
@@ -319,7 +321,8 @@ def dit_attention(attn: nn.Module, x: torch.Tensor, cfg: DiTConfig,
     else:
         q, k, v = (t.contiguous() for t in
                    qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
-        out, _ = topk_attention(q, k, v, D ** -0.5, mxs, attn_cfg)
+        out, _ = topk_attention(q, k, v, D ** -0.5, mxs, attn_cfg,
+                                orthogonal_matrix=orthogonal_matrix)
         out = out.transpose(1, 2).reshape(B, N, C)
     return linear(out, attn.proj.weight, attn.proj.bias, mx_specs=mxs)
 
@@ -366,10 +369,11 @@ def dit_block_step(blk: DiTBlock, attn_cfg: TopKAttentionConfig,
                    x: torch.Tensor, cb: torch.Tensor, *, cfg: DiTConfig,
                    specs: Optional[MxSpecs], act_dtype,
                    fuse_lnmod: bool = False, qkv_layout: str = "fused",
-                   fuse_gelu: bool = False) -> torch.Tensor:
+                   fuse_gelu: bool = False,
+                   orthogonal_matrix=None) -> torch.Tensor:
     """One DiT block (adaLN-Zero attention + MLP).  ``fuse_lnmod`` is
     ``_lnmod_eligible``'s answer; ``qkv_layout`` and ``fuse_gelu`` are the
-    plan's (``DiTQuantConfig``)."""
+    plan's (``DiTQuantConfig``); ``orthogonal_matrix`` ELSA's projection."""
     mxs = specs if attn_cfg.mx_quant else None
     mod = linear(nn.functional.silu(cb), blk.adaLN.weight,
                  blk.adaLN.bias).to(act_dtype)
@@ -379,7 +383,8 @@ def dit_block_step(blk: DiTBlock, attn_cfg: TopKAttentionConfig,
     h, h_preq = _lnmod(x, shift_msa, scale_msa, specs, fused)
     x = x + gate_msa[:, None] * dit_attention(
         blk.attn, h, cfg, specs, attn_cfg, x_prequantized=h_preq,
-        qkv_layout=qkv_layout).to(act_dtype)
+        qkv_layout=qkv_layout,
+        orthogonal_matrix=orthogonal_matrix).to(act_dtype)
     h, h_preq = _lnmod(x, shift_mlp, scale_mlp, specs, fused)
     h = linear(h, blk.mlp.fc1.weight, blk.mlp.fc1.bias,
                mx_specs=_preq(mxs, h_preq)).to(act_dtype)
@@ -430,9 +435,10 @@ def dit_final_layer(model: DiT, h: torch.Tensor, c: torch.Tensor,
 
 def dit_forward(model: DiT, x: torch.Tensor, t: torch.Tensor,
                 y: torch.Tensor, qcfg: DiTQuantConfig,
-                timestep_idx: Optional[int] = None) -> torch.Tensor:
+                timestep_idx: Optional[int] = None,
+                orthogonal_matrix=None) -> torch.Tensor:
     """(B, C, H, W) latents + (B,) timesteps + (B,) labels ->
-    (B, outC, H, W)."""
+    (B, outC, H, W); ``orthogonal_matrix``: ELSA's projection."""
     specs = qcfg.mx_specs if qcfg.mx_quant else None
     h, c = dit_embed(model, x, t, y, qcfg)
     cb = c.to(h.dtype)
@@ -441,18 +447,20 @@ def dit_forward(model: DiT, x: torch.Tensor, t: torch.Tensor,
         h = dit_block_step(blk, qcfg.block_attn_cfg(i, timestep_idx), h, cb,
                            cfg=model.cfg, specs=specs, act_dtype=h.dtype,
                            fuse_lnmod=fuse_lnmod, qkv_layout=qcfg.qkv_layout,
-                           fuse_gelu=qcfg.fuse_gelu)
+                           fuse_gelu=qcfg.fuse_gelu,
+                           orthogonal_matrix=orthogonal_matrix)
     return dit_final_layer(model, h, c, qcfg)
 
 
 def dit_forward_with_cfg(model: DiT, x, t, y, qcfg: DiTQuantConfig,
                          cfg_scale: float,
-                         timestep_idx: Optional[int] = None) -> torch.Tensor:
+                         timestep_idx: Optional[int] = None,
+                         orthogonal_matrix=None) -> torch.Tensor:
     """CFG forward on the duplicated batch; guidance on the first 3
     channels only (reference models.py:452-476)."""
     half = x[: len(x) // 2]
     out = dit_forward(model, torch.cat([half, half], dim=0), t, y, qcfg,
-                      timestep_idx)
+                      timestep_idx, orthogonal_matrix)
     eps, rest = out[:, :3], out[:, 3:]
     cond_eps, uncond_eps = eps.chunk(2, dim=0)
     half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)

@@ -10,6 +10,10 @@ attention (port of the JAX package's ``models/pixart.py``, forward only).
     feed-forward with GELU(tanh).
   * caption projection: linear / GELU(tanh) / linear from T5's 4096
     channels to the inner dim.
+  * micro-conditioning (the alpha 1024^2 model, or ``micro_conds=True``):
+    sinusoidal-256 embeddings of the resolution (H, W) and of the aspect
+    ratio, each through its own two-layer SiLU MLP to inner / 3 channels,
+    concatenated and added to the timestep embedding.
   * quantization plan with set_config semantics: exclude_blocks fall back
     to the ``exclude_blocks_type`` predictor; exclude_timesteps disable
     pruning at those sampling steps.
@@ -17,9 +21,9 @@ attention (port of the JAX package's ``models/pixart.py``, forward only).
 The parameters live in a ``PixArt`` module whose names follow the JAX
 parameter tree (``blocks.<i>.attn1.to_q.weight``, ``adaln_single.linear``,
 ...); the blocks are an ``nn.ModuleList`` walked by a Python loop.  Both
-attentions reach ``attention.topk_attention``, that is kernel K3; the
-serving tier's ``fuse_gelu`` opt-in takes kernel K6.  Not ported yet, and
-raising: micro-conditioning (the 1024^2 model) and the ELSA predictor.
+attentions reach ``attention.topk_attention``, that is kernel K3 (K4 at
+1024^2, N = 4096); the serving tier's ``fuse_gelu`` opt-in takes kernel
+K6.  ELSA's projection reaches the attentions as ``orthogonal_matrix``.
 """
 
 from __future__ import annotations
@@ -157,10 +161,6 @@ class PixArt(nn.Module):
 
     def __init__(self, cfg: PixArtConfig, device="cuda"):
         super().__init__()
-        if cfg.use_additional_conditions:
-            raise NotImplementedError(
-                "micro-conditioning (the PixArt-alpha 1024^2 model) is not "
-                "ported yet; it comes with the 1024^2 slice (ROADMAP.md)")
         device = resolve_device(device)
         self.cfg = cfg
         d, p = cfg.inner_dim, cfg.patch_size
@@ -173,6 +173,12 @@ class PixArt(nn.Module):
         self.adaln_single.emb_mlp0 = Affine(256, d, device)
         self.adaln_single.emb_mlp2 = Affine(d, d, device)
         self.adaln_single.linear = Affine(d, 6 * d, device)
+        if cfg.use_additional_conditions:  # inner / 3 channels each
+            sd = d // 3
+            self.adaln_single.res_mlp0 = Affine(256, sd, device)
+            self.adaln_single.res_mlp2 = Affine(sd, sd, device)
+            self.adaln_single.ar_mlp0 = Affine(256, sd, device)
+            self.adaln_single.ar_mlp2 = Affine(sd, sd, device)
         self.caption_projection = nn.Module()
         self.caption_projection.linear_1 = Affine(cfg.caption_channels, d,
                                                   device)
@@ -225,7 +231,7 @@ def _ln(x, eps=1e-6):
 
 def _mha(attn: nn.Module, x: torch.Tensor, kv: torch.Tensor,
          cfg: PixArtConfig, specs, attn_cfg: TopKAttentionConfig,
-         bias=None) -> torch.Tensor:
+         bias=None, orthogonal_matrix=None) -> torch.Tensor:
     """Shared self/cross attention: q from x, k and v from kv."""
     B, N, C = x.shape
     H = cfg.num_attention_heads
@@ -240,7 +246,8 @@ def _mha(attn: nn.Module, x: torch.Tensor, kv: torch.Tensor,
     q = q.reshape(B, N, H, D).transpose(1, 2).contiguous()
     k = k.reshape(B, S, H, D).transpose(1, 2).contiguous()
     v = v.reshape(B, S, H, D).transpose(1, 2).contiguous()
-    out, _ = topk_attention(q, k, v, D ** -0.5, mxs, attn_cfg, bias=bias)
+    out, _ = topk_attention(q, k, v, D ** -0.5, mxs, attn_cfg,
+                            orthogonal_matrix=orthogonal_matrix, bias=bias)
     out = out.transpose(1, 2).reshape(B, N, C)
     return linear(out, attn.to_out.weight, attn.to_out.bias, mx_specs=mxs)
 
@@ -249,8 +256,8 @@ def pixart_block_apply(blk: PixArtBlock, x: torch.Tensor, ctx: torch.Tensor,
                        t6: torch.Tensor, cfg: PixArtConfig, specs,
                        self_cfg: TopKAttentionConfig,
                        cross_cfg: TopKAttentionConfig, bias=None,
-                       act_dtype=torch.float32,
-                       fuse_gelu: bool = False) -> torch.Tensor:
+                       act_dtype=torch.float32, fuse_gelu: bool = False,
+                       orthogonal_matrix=None) -> torch.Tensor:
     """One transformer block (ada_norm_single): adaLN-single modulation, MX
     self-attention, cross-attention (the bias added to the true and the
     predicted scores inside ``topk_attention``), MX feed-forward with
@@ -262,11 +269,12 @@ def pixart_block_apply(blk: PixArtBlock, x: torch.Tensor, ctx: torch.Tensor,
     (shift_msa, scale_msa, gate_msa,
      shift_mlp, scale_mlp, gate_mlp) = [mods[:, i][:, None] for i in range(6)]
     h = _ln(x, cfg.norm_eps) * (1 + scale_msa) + shift_msa
-    x = x + gate_msa * _mha(blk.attn1, h, h, cfg, specs,
-                            self_cfg).to(act_dtype)
+    x = x + gate_msa * _mha(blk.attn1, h, h, cfg, specs, self_cfg,
+                            orthogonal_matrix=orthogonal_matrix
+                            ).to(act_dtype)
     # PixArt: no norm before the cross-attention
-    x = x + _mha(blk.attn2, x, ctx, cfg, specs, cross_cfg,
-                 bias=bias).to(act_dtype)
+    x = x + _mha(blk.attn2, x, ctx, cfg, specs, cross_cfg, bias=bias,
+                 orthogonal_matrix=orthogonal_matrix).to(act_dtype)
     h = _ln(x, cfg.norm_eps) * (1 + scale_mlp) + shift_mlp
     h = linear(h, blk.ff.fc1.weight, blk.ff.fc1.bias,
                mx_specs=mxs).to(act_dtype)
@@ -278,12 +286,17 @@ def pixart_block_apply(blk: PixArtBlock, x: torch.Tensor, ctx: torch.Tensor,
 
 def pixart_embed(model: PixArt, hidden_states: torch.Tensor,
                  encoder_hidden_states: torch.Tensor, timestep: torch.Tensor,
-                 qcfg: PixArtQuantConfig):
-    """Patch and position embedding, the adaLN-single conditioning and the
-    caption projection: (B, C, H, W) latents, (B, S, caption) T5 states and
-    (B,) timesteps -> tokens (B, N, inner) and projected captions (B, S,
-    inner) in the activation dtype, the (B, 6 * inner) modulation and the
-    (B, inner) timestep embedding."""
+                 qcfg: PixArtQuantConfig,
+                 resolution: Optional[torch.Tensor] = None,
+                 aspect_ratio: Optional[torch.Tensor] = None):
+    """Patch and position embedding, the adaLN-single conditioning (with the
+    micro-conditioning where the config has it) and the caption projection:
+    (B, C, H, W) latents, (B, S, caption) T5 states and (B,) timesteps ->
+    tokens (B, N, inner) and projected captions (B, S, inner) in the
+    activation dtype, the (B, 6 * inner) modulation and the (B, inner)
+    conditioning embedding.  ``resolution`` (B, 2) and ``aspect_ratio``
+    (B, 1) default to the model's native pixel size 8 * sample_size,
+    square, and 1."""
     cfg = model.cfg
     pe = model.pos_embed
     x = patch_embed(hidden_states, pe.proj.weight, pe.proj.bias,
@@ -294,6 +307,24 @@ def pixart_embed(model: PixArt, hidden_states: torch.Tensor,
     emb = linear(emb, ada.emb_mlp0.weight, ada.emb_mlp0.bias)
     emb = linear(nn.functional.silu(emb), ada.emb_mlp2.weight,
                  ada.emb_mlp2.bias)
+    if cfg.use_additional_conditions:
+        B, dev = hidden_states.shape[0], hidden_states.device
+        if resolution is None:
+            resolution = torch.full((B, 2), float(cfg.sample_size * 8),
+                                    device=dev)
+        if aspect_ratio is None:
+            aspect_ratio = torch.ones(B, 1, device=dev)
+
+        def size_emb(v, m0, m2):
+            # (B, n) scalars -> sinusoidal-256 each -> MLP -> (B, n * d/3)
+            e = timestep_embedding(v.reshape(-1).to(torch.float32), 256)
+            e = linear(e, m0.weight, m0.bias)
+            e = linear(nn.functional.silu(e), m2.weight, m2.bias)
+            return e.reshape(v.shape[0], -1)
+
+        emb = emb + torch.cat(
+            [size_emb(resolution, ada.res_mlp0, ada.res_mlp2),
+             size_emb(aspect_ratio, ada.ar_mlp0, ada.ar_mlp2)], dim=-1)
     t6 = linear(nn.functional.silu(emb), ada.linear.weight, ada.linear.bias)
 
     cp = model.caption_projection
@@ -326,22 +357,31 @@ def pixart_forward(model: PixArt, hidden_states: torch.Tensor,
                    encoder_hidden_states: torch.Tensor,
                    timestep: torch.Tensor, qcfg: PixArtQuantConfig,
                    encoder_attention_mask: Optional[torch.Tensor] = None,
-                   timestep_idx: Optional[int] = None) -> torch.Tensor:
+                   timestep_idx: Optional[int] = None,
+                   orthogonal_matrix=None,
+                   resolution: Optional[torch.Tensor] = None,
+                   aspect_ratio: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """(B, C, H, W) latents + (B, S, caption) T5 states + (B,) timesteps
     -> (B, out_channels, H, W).  encoder_attention_mask: (B, S) of 0/1,
     turned into the additive bias (1 - mask) * -10000 of shape
-    (B, 1, 1, S), or an additive bias already."""
+    (B, 1, 1, S), or an additive bias already.  ``orthogonal_matrix``:
+    ELSA's projection; ``resolution`` and ``aspect_ratio``: the
+    micro-conditioning's (``pixart_embed``)."""
     cfg = model.cfg
     specs = qcfg.mx_specs if qcfg.mx_quant else None
     bias = encoder_attention_mask
     if bias is not None and bias.dim() == 2:
         bias = ((1 - bias.to(torch.float32)) * -10000.0)[:, None, None, :]
     x, ctx, t6, emb = pixart_embed(model, hidden_states,
-                                   encoder_hidden_states, timestep, qcfg)
+                                   encoder_hidden_states, timestep, qcfg,
+                                   resolution=resolution,
+                                   aspect_ratio=aspect_ratio)
     for i, blk in enumerate(model.blocks):
         x = pixart_block_apply(blk, x, ctx, t6, cfg, specs,
                                qcfg.self_attn_cfg(i, timestep_idx),
                                qcfg.cross_attn_cfg(i, timestep_idx),
                                bias=bias, act_dtype=x.dtype,
-                               fuse_gelu=qcfg.fuse_gelu)
+                               fuse_gelu=qcfg.fuse_gelu,
+                               orthogonal_matrix=orthogonal_matrix)
     return pixart_final_layer(model, x, emb)

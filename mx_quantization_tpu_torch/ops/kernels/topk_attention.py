@@ -46,6 +46,23 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     every d is taken exactly and rounded to f32 once (the kernels: byte
     planes of n in int8 mma, combined in int64); MXFP: the products in d
     order per block, the blocks in order
+  * K3's and K4's other predictors, per element of the quantized q and k
+    (JAX ``_prep_side``): MXINT4 re-quantizes the side (after its bf16
+    round) to the int4 grid; partial_Q keeps q's values and takes ex_pred's
+    operand for k, partial_K the reverse; threshold_ex sign * 2^max(te,
+    e - 1) with te the value's own exponent (0 at a zero value); true_ex
+    sign * 2^te with a zero value mapped to +1 (the padded d masked).  On
+    the int grids MXINT4, partial and threshold_ex are small integers times
+    a power of two per block, so each block's sum is exact and the blocks
+    add in order; true_ex (every format) and every predictor of the MXFP
+    grids sum their products in d order per block, the blocks in order,
+    on the CUDA cores (true_ex takes that kernel's true score and PV too)
+  * ELSA: the hash of a quantized row is the sign (>= 0) of each row of
+    ``proj`` (bits, D) times it, the products rounded in f32 and added in d
+    order; hamming = the differing bits; the score is sqrt(sum kv^2) of the
+    key AT THE QUERY'S INDEX (0 past the keys; the reference's square-only
+    quirk) times cos(max(pi / bits * hamming - 0.127, 0)), the cosines a
+    table of bits + 1 float32 values (``_elsa_cos_table``)
   * K3 and K4 add the bias to the predictor scores too, before the padded keys
     are masked
   * monotone keys truncated to key_bits; the k-th key and the count of
@@ -75,11 +92,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
 
 from ...formats import FormatParams
+from ...predictors.elsa import THETA_BIAS
 from ..fastquant import (bf16_round_half_away, lane_sum, pow2, quantize_blocks,
                          round_half_away)
 from . import build
@@ -103,8 +122,17 @@ K3_DEFINES = (("K3_MAX_TOKENS", MAX_SPLIT_TOKENS),
               ("MAX_HEAD_DIM", MAX_HEAD_DIM))
 K4_DEFINES = (("K4_MAX_KEYS", MAX_TILED_KEYS),)
 SPLIT_DEFINES = K3_DEFINES + K4_DEFINES  # K3 and K4 share their source
+# the split source builds in parts, each a library with its share of the
+# kernels, so that the parts compile side by side (``split_builds``); the
+# source's topk_attention_split_part names the part that takes a call
+SPLIT_PARTS = 5
 QKV_PRED_MODES = ("ex_pred",)
-SPLIT_PRED_MODES = ("ex_pred", "two_step_leading_ones")
+# every predictor of the TPU kernels; the index is the C interface's number
+SPLIT_PRED_MODES = ("ex_pred", "two_step_leading_ones", "MXINT4", "partial_Q",
+                    "partial_K", "true_ex", "threshold_ex", "ELSA")
+# ELSA's hash holds at most this many bits (a row of the projection each;
+# the kernels keep four 32-bit words a row)
+MAX_ELSA_BITS = 128
 _NEG = -3.0e38
 
 
@@ -114,14 +142,13 @@ def _round_up(x: int, m: int) -> int:
 
 def _check_args(pred_mode, approx, contract, key_bits, block_size,
                 modes=QKV_PRED_MODES):
+    if approx and pred_mode not in SPLIT_PRED_MODES:
+        raise ValueError(f"unknown pred_mode {pred_mode!r}")
     if approx and pred_mode not in modes:
-        where = ("the split entry (kernel K3) serves it"
-                 if pred_mode in SPLIT_PRED_MODES else
-                 "MXINT4, partial_Q, partial_K, true_ex, threshold_ex and "
-                 "ELSA are K3's and K4's remaining modes, not ported yet "
-                 "(ROADMAP.md)")
         raise NotImplementedError(
-            f"pred_mode={pred_mode!r}: this kernel serves {modes}; {where}")
+            f"pred_mode={pred_mode!r}: this kernel serves {modes}; the split "
+            "entry (kernel K3) serves it, and K2's and K7's remaining modes "
+            "are not ported yet (ROADMAP.md)")
     if contract not in ("exact", "serving"):
         raise ValueError(f"unknown contract {contract!r}")
     if key_bits not in (8, 16, 32):
@@ -243,15 +270,19 @@ def _fragment_sum(e: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _d_mask(vals: torch.Tensor, d_valid: int) -> torch.Tensor:
+    """1 at the valid d of blocks (..., nb, 32), 0 at the padding."""
+    nb = vals.shape[-2]
+    return (torch.arange(nb * 32, device=vals.device) < d_valid).reshape(
+        nb, 32).to(vals.dtype)
+
+
 def _ex_pred_operand(vals: torch.Tensor, e: torch.Tensor,
                      d_valid: int) -> torch.Tensor:
     """ex_pred operands +-2^e (zeros count as +) of quantized blocks
     (..., nb, 32) with exponents (..., nb, 1); padded d masked."""
     pw = pow2(e.clamp(-126, 127))
-    a = torch.where(vals < 0, -pw, pw)
-    nb = vals.shape[-2]
-    return a * (torch.arange(nb * 32, device=vals.device) < d_valid
-                ).reshape(nb, 32).to(a.dtype)
+    return torch.where(vals < 0, -pw, pw) * _d_mask(vals, d_valid)
 
 
 def _blockwise_scores(aq: torch.Tensor, ak: torch.Tensor) -> torch.Tensor:
@@ -453,21 +484,136 @@ def _exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         b.shape[:-2] + (-1,)).double().transpose(-1, -2)).to(torch.float32)
 
 
+def _blockwise_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, nb, 32) @ b (..., P, nb, 32)^T: each block's sum exact (in
+    float64; the operands are small integers times a power of two per block,
+    as the kernels' int8 mma sums them), rounded to f32, the blocks added
+    in order."""
+    blk = torch.einsum("...mkd,...pkd->...mpk", a.double(), b.double()).to(
+        torch.float32)
+    out = blk[..., 0]
+    for i in range(1, blk.shape[-1]):
+        out = out + blk[..., i]
+    return out
+
+
+def _own_exponent(vals: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |v|) from the bits of v (0 at v == 0), int32."""
+    te = (vals.abs().contiguous().view(torch.int32) >> 23) - 127
+    return torch.where(vals == 0, 0, te)
+
+
+def _threshold_ex_operand(vals: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """threshold_ex: sign(v) * 2^max(te, e - 1), sign(0) = 0 (JAX
+    ``_threshold_ex_approx``)."""
+    th = torch.maximum(_own_exponent(vals), e - 1)
+    return torch.sign(vals) * pow2(th.clamp(-126, 127))
+
+
+def _true_ex_operand(vals: torch.Tensor, d_valid: int) -> torch.Tensor:
+    """true_ex: sign(v) * 2^te, a zero value mapped to +1 (JAX
+    ``_true_ex_approx``), the padded d masked."""
+    pw = pow2(_own_exponent(vals).clamp(-126, 127))
+    return torch.where(vals < 0, -pw, pw) * _d_mask(vals, d_valid)
+
+
+def _pred_operands(pred_mode, sides, d_valid, scale_bits, flush):
+    """The predictor operands (q's, k's) of ``pred_mode`` (not ex_pred or
+    ELSA) from each side's (blocks after the bf16 round, quantized values,
+    block exponents)."""
+    def one(side, xb, vals, e):
+        if pred_mode == "two_step_leading_ones":
+            return _two_step_operand(vals, e)
+        if pred_mode == "MXINT4":  # the original side on the int4 grid
+            v4, _ = quantize_blocks(xb, FormatParams(0, 4, 0, 0.0, 0.0),
+                                    scale_bits, flush)
+            return v4
+        if pred_mode == "threshold_ex":
+            return _threshold_ex_operand(vals, e)
+        if pred_mode == "true_ex":
+            return _true_ex_operand(vals, d_valid)
+        if pred_mode == f"partial_{side}":  # the full-mantissa side
+            return vals
+        return _ex_pred_operand(vals, e, d_valid)  # partial's other side
+    return tuple(one(side, *x) for side, x in zip("QK", sides))
+
+
+@functools.lru_cache(maxsize=None)
+def _elsa_cos_table(bits: int, device=torch.device("cpu")) -> torch.Tensor:
+    """cos(max(pi / bits * h - 0.127, 0)) for every hamming distance h =
+    0 .. bits, each operation in float32 (JAX's ``_score_select_output``);
+    the plain versions and the kernels read this one table."""
+    h = torch.arange(bits + 1, dtype=torch.float32)
+    ang = h * torch.tensor(math.pi / bits, dtype=torch.float32) - torch.tensor(
+        THETA_BIAS, dtype=torch.float32)
+    return torch.cos(torch.clamp(ang, min=0.0)).to(device)
+
+
+def _elsa_hash(vals: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """+-1 signs (float32) of proj (bits, D) times each row of vals (...,
+    n, nb, 32): the products rounded in f32 and added in d order, >= 0 ->
+    +1.  Returns (..., n, bits)."""
+    v = vals.reshape(*vals.shape[:-2], -1)
+    acc = torch.zeros(*v.shape[:-1], proj.shape[0], device=vals.device)
+    for d in range(proj.shape[1]):
+        acc = acc + v[..., d, None] * proj[:, d]
+    return torch.where(acc >= 0, 1.0, -1.0)
+
+
+def _elsa_scores(qv: torch.Tensor, kv: torch.Tensor,
+                 proj: torch.Tensor) -> torch.Tensor:
+    """ELSA's predictor scores (B, H, N, Sp) from the quantized q (B, H, N,
+    nb, 32) and k (B, H, Sp, nb, 32): the norm of key n at query row n
+    (sum of squares in d order; 0 past the keys) times the cosine of the
+    angle its hamming distance estimates."""
+    bits, D = proj.shape
+    hq, hk = _elsa_hash(qv, proj), _elsa_hash(kv, proj)
+    # the +-1 dot over at most 128 bits is an exact integer in f32
+    ham = ((bits - torch.matmul(hq, hk.transpose(-1, -2))) * 0.5).long()
+    k2 = kv.reshape(*kv.shape[:-2], -1)
+    nsum = torch.zeros(k2.shape[:-1], device=kv.device)
+    for d in range(D):
+        nsum = nsum + k2[..., d] * k2[..., d]
+    N, Sp = qv.shape[-3], kv.shape[-3]
+    norm = torch.nn.functional.pad(torch.sqrt(nsum),
+                                   (0, max(0, N - Sp)))[..., :N]
+    return norm[..., None] * _elsa_cos_table(bits, qv.device)[ham]
+
+
+def _check_proj(proj, D: int):
+    if proj is None:
+        raise ValueError("pred_mode='ELSA' needs the projection matrix")
+    if proj.dim() != 2 or proj.shape[1] != D or \
+            not 1 <= proj.shape[0] <= MAX_ELSA_BITS:
+        raise NotImplementedError(
+            f"ELSA takes a (bits, D={D}) projection with 1 <= bits <= "
+            f"{MAX_ELSA_BITS}, got {tuple(proj.shape)}")
+
+
+def _int_route(ebits: int, pred: Optional[str]) -> bool:
+    """Do K3 and K4 take their int-grid kernel (tensor-core products)?
+    true_ex and the MXFP grids take the CUDA-core one."""
+    return ebits == 0 and pred != "true_ex"
+
+
 def _split_score_sums(q: torch.Tensor, k_: torch.Tensor, fmt,
                       scale_bits: int, flush: bool, bfloat: int,
-                      pred_mode: Optional[str]):
+                      pred_mode: Optional[str], proj=None):
     """K3's and K4's true scores and (``pred_mode`` not None) predictor
     scores of q (B, H, N, D) against k (B, H, S, D), before the exact
     tier's round, the scale and the bias: (B, H, N, S padded to 32) float32
     each, the predictor's None without a predictor.  The true score sums
-    each 32-d block exactly and the blocks in order (INT formats:
-    ``_block_scaled_dot``; MXFP: ``_blocks_in_order``); two_step's
-    predictor is one exact dot rounded once (INT: ``_exact_int_dot``;
-    MXFP: ``_blocks_in_order``); ex_pred's sums blocks in order."""
+    each 32-d block exactly and the blocks in order (the int-grid kernel:
+    ``_block_scaled_dot``; the CUDA-core one: ``_blocks_in_order``);
+    two_step's int-grid predictor is one exact dot rounded once
+    (``_exact_int_dot``); ex_pred's, MXINT4's, partial's and threshold_ex's
+    int-grid predictors sum each block exactly, the blocks in order; the
+    CUDA-core kernel's predictors ``_blocks_in_order``; ELSA
+    ``_elsa_scores``."""
     N, D = q.shape[-2:]
     Sp = _round_up(k_.shape[-2], 32)
     Dp = _round_up(max(D, 8), 32)
-    int_fmt = fmt[0] == 0
+    int_route = _int_route(fmt[0], pred_mode)
     qb = _split_blocks(q, N, Dp, bfloat)
     kb = _split_blocks(k_, Sp, Dp, bfloat)
     # the kernels stage the quantized values as bf16 (exact on the int
@@ -475,25 +621,31 @@ def _split_score_sums(q: torch.Tensor, k_: torch.Tensor, fmt,
     qv, qe = quantize_blocks(qb, fmt, scale_bits, flush)
     kv, ke = quantize_blocks(kb, fmt, scale_bits, flush)
     qv, kv = _bf16(qv), _bf16(kv)
-    if int_fmt:  # the kernels' int8 grid points and exponents
+    if int_route:  # the kernels' int8 grid points and exponents
         qm, qme = _mx_mantissas(qb, fmt, scale_bits, flush)
         km, kme = _mx_mantissas(kb, fmt, scale_bits, flush)
         st = _block_scaled_dot(qm, qme, km, kme, fmt[1] - 2)
     else:
         st = _blocks_in_order(qv, kv)
-    s_sel = None
+    if pred_mode is None:
+        return st, None
+    if pred_mode == "ELSA":
+        return st, _elsa_scores(qv, kv, proj.to(q.device, torch.float32))
+    if pred_mode == "ex_pred":
+        return st, _blockwise_scores(_ex_pred_operand(qv, qe, D),
+                                     _ex_pred_operand(kv, ke, D))
+    aq, ak = _pred_operands(pred_mode, ((qb, qv, qe), (kb, kv, ke)), D,
+                            scale_bits, flush)
+    if not int_route:
+        return st, _blocks_in_order(aq, ak)
     if pred_mode == "two_step_leading_ones":
-        aq, ak = _two_step_operand(qv, qe), _two_step_operand(kv, ke)
-        s_sel = (_exact_int_dot if int_fmt else _blocks_in_order)(aq, ak)
-    elif pred_mode is not None:
-        s_sel = _blockwise_scores(_ex_pred_operand(qv, qe, D),
-                                  _ex_pred_operand(kv, ke, D))
-    return st, s_sel
+        return st, _exact_int_dot(aq, ak)
+    return st, _blockwise_exact(aq, ak)
 
 
 def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
-                             v: torch.Tensor, bias=None, *, k: int,
-                             scale: float, block_size: int = 32,
+                             v: torch.Tensor, bias=None, proj=None, *,
+                             k: int, scale: float, block_size: int = 32,
                              mbits: int = 8, scale_bits: int = 8,
                              approx: bool = True,
                              pred_mode: str = "ex_pred",
@@ -504,7 +656,7 @@ def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
                              contract: str = "exact") -> torch.Tensor:
     """Plain PyTorch version of K3 and K4, vectorized over (batch, head,
     query): q (B, H, N, D), k and v (B, H, S, D), bias (B, 1, 1, S) or
-    None -> (B, H, N, D)."""
+    None, proj (bits, D) for ELSA -> (B, H, N, D)."""
     _check_args(pred_mode, approx, contract, key_bits, block_size,
                 SPLIT_PRED_MODES)
     relaxed = contract == "serving"
@@ -512,10 +664,13 @@ def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
     B, H, N, D = q.shape
     S = k_.shape[2]
     Sp = _round_up(S, 32)
-    int_fmt = ebits == 0
     shift = mbits - 2
     pred = pred_mode if approx and k < S else None
-    st, s_sel = _split_score_sums(q, k_, fmt, scale_bits, flush, bfloat, pred)
+    if pred == "ELSA":
+        _check_proj(proj, D)
+    int_fmt = _int_route(ebits, pred)
+    st, s_sel = _split_score_sums(q, k_, fmt, scale_bits, flush, bfloat, pred,
+                                  proj)
     v32 = v.to(torch.float32)
     if bfloat == 16 and v.dtype != torch.bfloat16:
         v32 = bf16_round_half_away(v32)
@@ -728,9 +883,15 @@ fused_topk_attention_qkv_t.sites = collections.Counter()
 # ----------------------------------------------------------------------
 # K3 and K4 wrappers
 # ----------------------------------------------------------------------
+def split_builds():
+    """(source, definitions) of each part of K3's and K4's build."""
+    return [(SPLIT_SOURCE, SPLIT_DEFINES + (("SPLIT_PART", i),))
+            for i in range(SPLIT_PARTS)]
+
+
 @functools.cache
-def _split_library() -> ctypes.CDLL:
-    return bind_split_library(build.load(SPLIT_SOURCE, SPLIT_DEFINES))
+def _split_library(part: int) -> ctypes.CDLL:
+    return bind_split_library(build.load(*split_builds()[part]))
 
 
 def bind_split_library(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -741,18 +902,27 @@ def bind_split_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.topk_attention_split_smem_bytes.restype = ll
     lib.topk_attention_split_workspace_bytes.argtypes = [i] * 9
     lib.topk_attention_split_workspace_bytes.restype = ll
-    lib.topk_attention_split.argtypes = [p] * 6 + [i] * 8 + [f] + [
-        i] * 9 + [f, i, i, p]
+    lib.topk_attention_split_part.argtypes = [i] * 5
+    lib.topk_attention_split_part.restype = i
+    lib.topk_attention_split.argtypes = [p] * 8 + [i] * 8 + [f] + [
+        i] * 9 + [f, i, i, i, p]
     lib.topk_attention_split.restype = i
     return lib
 
 
-def _split_operands(name, q, k_, v, bias, kw):
-    """Check a CUDA call of K3 or K4; returns (B, H, N, S, D) and the bias
-    as a contiguous (B, S) float32 tensor or None."""
+def _split_operands(name, q, k_, v, bias, proj, kw):
+    """Check a CUDA call of K3 or K4; returns (B, H, N, S, D), the bias as a
+    contiguous (B, S) float32 tensor or None, and (ELSA) the projection as a
+    contiguous float32 tensor or None."""
     _check_args(kw["pred_mode"], kw["approx"], kw["contract"],
                 kw["key_bits"], kw["block_size"], SPLIT_PRED_MODES)
-    tensors = [q, k_, v] + ([] if bias is None else [bias])
+    elsa = kw["approx"] and kw["pred_mode"] == "ELSA" and \
+        kw["k"] < k_.shape[-2]
+    if elsa:
+        _check_proj(proj, q.shape[-1])
+    else:
+        proj = None
+    tensors = [q, k_, v] + [t for t in (bias, proj) if t is not None]
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"{name} runs on CUDA tensors of one device (or on "
                          f"CPU tensors), not {[str(t.device) for t in tensors]}")
@@ -774,35 +944,40 @@ def _split_operands(name, q, k_, v, bias, kw):
         raise ValueError(f"k must be >= 1, got {kw['k']}")
     B, H, N, D = q.shape
     S = k_.shape[2]
+    if proj is not None:
+        proj = proj.to(torch.float32).contiguous()
     if bias is None:
-        return (B, H, N, S, D), None
+        return (B, H, N, S, D), None, proj
     if tuple(bias.shape) != (B, 1, 1, S):
         raise ValueError(f"bias must be (B, 1, 1, S) = {(B, 1, 1, S)}, "
                          f"got {tuple(bias.shape)}")
-    return (B, H, N, S, D), bias.reshape(B, S).to(torch.float32).contiguous()
+    return ((B, H, N, S, D), bias.reshape(B, S).to(torch.float32).contiguous(),
+            proj)
 
 
 def _launch_args(kw):
     """The trailing launch arguments K3 and K4 share, from the wrapper's
-    keywords: topk, scale, approx, pred_mode, key_bits, relaxed, bfloat16,
-    flush, ebits, mbits, emax, max_norm, scale_bits."""
+    keywords: topk, scale, approx, pred_mode (its index in
+    SPLIT_PRED_MODES), key_bits, relaxed, bfloat16, flush, ebits, mbits,
+    emax, max_norm, scale_bits."""
     return (int(kw["k"]), float(kw["scale"]), int(kw["approx"]),
-            int(kw["pred_mode"] == "two_step_leading_ones"),
+            SPLIT_PRED_MODES.index(kw["pred_mode"]),
             int(kw["key_bits"]), int(kw["contract"] == "serving"),
             int(kw["bfloat"] == 16), int(kw["flush"]), int(kw["ebits"]),
             int(kw["mbits"]), int(kw["emax"]), float(kw["max_norm"]),
             int(kw["scale_bits"]))
 
 
-def _count(wrapper, q, k_, bias, kw):
+def _count(wrapper, q, k_, bias, proj, kw):
     wrapper.launches += 1
     wrapper.sites[(tuple(q.shape), tuple(k_.shape), q.dtype,
                    None if bias is None else tuple(bias.shape),
+                   None if proj is None else tuple(proj.shape),
                    tuple(kw.items()))] += 1
 
 
 def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
-                         bias=None, *, k: int, scale: float,
+                         bias=None, proj=None, *, k: int, scale: float,
                          block_size: int = 32, mbits: int = 8,
                          scale_bits: int = 8, approx: bool = True,
                          pred_mode: str = "ex_pred", key_bits: int = 32,
@@ -811,7 +986,8 @@ def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
                          max_norm: float = 0.0,
                          contract: str = "exact") -> torch.Tensor:
     """q (B, H, N, D), k and v (B, H, S, D), optional key bias (B, 1, 1, S)
-    -> (B, H, N, D) attention output.
+    and, for ELSA, the projection proj (bits, D) -> (B, H, N, D) attention
+    output.
 
     On CUDA tensors K3 where N, S <= MAX_SPLIT_TOKENS, else K4 (through
     ``fused_topk_attention_tiled``), as the TPU kernel takes its short or
@@ -822,18 +998,20 @@ def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
               flush=flush, ebits=ebits, emax=emax, max_norm=max_norm,
               contract=contract)
     if q.device.type == "cpu":
-        return fused_topk_attention_ref(q, k_, v, bias, **kw)
+        return fused_topk_attention_ref(q, k_, v, bias, proj, **kw)
     if max(q.shape[-2], k_.shape[-2]) > MAX_SPLIT_TOKENS:
-        return fused_topk_attention_tiled(q, k_, v, bias, **kw)
-    return _launch_split("K3", fused_topk_attention, q, k_, v, bias, kw)
+        return fused_topk_attention_tiled(q, k_, v, bias, proj, **kw)
+    return _launch_split("K3", fused_topk_attention, q, k_, v, bias, proj,
+                         kw)
 
 
-def _launch_split(name, wrapper, q, k_, v, bias, kw):
+def _launch_split(name, wrapper, q, k_, v, bias, proj, kw):
     """Check and launch K3 (``name`` "K3") or K4 ("K4"): the pre-pass that
     quantizes each (row, head) cell's K side once into a workspace this
     function allocates, then the attention kernel."""
     tiled = int(name == "K4")
-    (B, H, N, S, D), brow = _split_operands(name, q, k_, v, bias, kw)
+    (B, H, N, S, D), brow, pmat = _split_operands(name, q, k_, v, bias, proj,
+                                                  kw)
     if tiled and S > MAX_TILED_KEYS or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"K4 takes S <= {MAX_TILED_KEYS} and D <= {MAX_HEAD_DIM} (got "
@@ -844,7 +1022,11 @@ def _launch_split(name, wrapper, q, k_, v, bias, kw):
             "ported (ROADMAP.md)")
     args = _launch_args(kw)
     topk, approx, pred = args[0], args[2], args[3]
-    lib = _split_library()
+    part = _split_library(0).topk_attention_split_part(
+        S, topk, approx, pred, args[8])
+    if part < 0:
+        raise ValueError(f"{name} takes no call with {kw}")
+    lib = _split_library(part)
     if lib.topk_attention_split_smem_bytes(
             N, S, D, topk, approx, pred, args[4], args[5], args[8],
             tiled) == 0:
@@ -853,22 +1035,26 @@ def _launch_split(name, wrapper, q, k_, v, bias, kw):
         B, H, S, D, topk, approx, pred, args[5], args[8]), dtype=torch.uint8,
         device=q.device)
     out = torch.empty(B, H, N, D, dtype=kw["out_dtype"], device=q.device)
+    bits = 0 if pmat is None else pmat.shape[0]
+    cos = None if pmat is None else _elsa_cos_table(bits, q.device)
     with torch.cuda.device(q.device):
         err = lib.topk_attention_split(
             q.data_ptr(), k_.data_ptr(), v.data_ptr(),
-            None if brow is None else brow.data_ptr(), ws.data_ptr(),
+            None if brow is None else brow.data_ptr(),
+            None if pmat is None else pmat.data_ptr(),
+            None if cos is None else cos.data_ptr(), ws.data_ptr(),
             out.data_ptr(), B, H, N, S, D, int(q.dtype == torch.bfloat16),
-            int(kw["out_dtype"] == torch.bfloat16), *args, tiled,
+            int(kw["out_dtype"] == torch.bfloat16), *args, bits, tiled,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    _count(wrapper, q, k_, bias, kw)
+    _count(wrapper, q, k_, bias, pmat, kw)
     return out
 
 
 def fused_topk_attention_tiled(q: torch.Tensor, k_: torch.Tensor,
-                               v: torch.Tensor, bias=None, *, k: int,
-                               scale: float, block_size: int = 32,
+                               v: torch.Tensor, bias=None, proj=None, *,
+                               k: int, scale: float, block_size: int = 32,
                                mbits: int = 8, scale_bits: int = 8,
                                approx: bool = True,
                                pred_mode: str = "ex_pred",
@@ -887,13 +1073,13 @@ def fused_topk_attention_tiled(q: torch.Tensor, k_: torch.Tensor,
               flush=flush, ebits=ebits, emax=emax, max_norm=max_norm,
               contract=contract)
     if q.device.type == "cpu":
-        return fused_topk_attention_ref(q, k_, v, bias, **kw)
+        return fused_topk_attention_ref(q, k_, v, bias, proj, **kw)
     return _launch_split("K4", fused_topk_attention_tiled, q, k_, v, bias,
-                         kw)
+                         proj, kw)
 
 
 # launches, and launches per call site: (q shape, k shape, dtype, bias
-# shape or None, keyword arguments)
+# shape or None, projection shape or None, keyword arguments)
 fused_topk_attention.launches = 0
 fused_topk_attention.sites = collections.Counter()
 fused_topk_attention_tiled.launches = 0

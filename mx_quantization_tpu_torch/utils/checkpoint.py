@@ -94,18 +94,16 @@ def load_dit_checkpoint(path: str, depth: int = 28) -> Dict[str, torch.Tensor]:
 def load_pixart_checkpoint(path: str, num_layers: int = 28
                            ) -> Dict[str, torch.Tensor]:
     """Read a diffusers PixArtTransformer2DModel state dict (the
-    PixArt-alpha 256/512 safetensors or a torch file) and return a state
-    dict in the port's names, for ``PixArt.load_state_dict``."""
+    PixArt-alpha 256/512/1024 safetensors or a torch file) and return a
+    state dict in the port's names, for ``PixArt.load_state_dict``.  The
+    1024^2 model's micro-conditioning embedders map where the file has
+    them."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
         sd = load_file(path)
     else:
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         sd = ckpt.get("state_dict", ckpt)
-    if "adaln_single.emb.resolution_embedder.linear_1.weight" in sd:
-        raise NotImplementedError(
-            "this checkpoint has micro-conditioning embedders (the 1024^2 "
-            "model), which the port does not have yet (ROADMAP.md)")
     names = {
         "pos_embed.proj": "pos_embed.proj",
         "adaln_single.emb_mlp0": "adaln_single.emb.timestep_embedder.linear_1",
@@ -115,6 +113,11 @@ def load_pixart_checkpoint(path: str, num_layers: int = 28
         "caption_projection.linear_2": "caption_projection.linear_2",
         "proj_out": "proj_out",
     }
+    if "adaln_single.emb.resolution_embedder.linear_1.weight" in sd:
+        for ours, theirs in (("res", "resolution"), ("ar", "aspect_ratio")):
+            for i in (1, 2):
+                names[f"adaln_single.{ours}_mlp{2 * i - 2}"] = \
+                    f"adaln_single.emb.{theirs}_embedder.linear_{i}"
     for i in range(num_layers):
         for attn in ("attn1", "attn2"):
             for lin in ("to_q", "to_k", "to_v"):

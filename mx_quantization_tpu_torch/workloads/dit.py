@@ -6,6 +6,8 @@ Run (random weights unless --ckpt names a DiT checkpoint):
         --num-steps 100 --cfg-scale 4.0 --mx-quant --top-k --k 154 \
         --exclude-blocks 27 --key-bits 8 --activation-dtype bfloat16 \
         --prequantize --contract serving
+--pred-mode takes every predictor of the kernels; ELSA builds the structured
+orthogonal projection, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..device import resolve_device
 from ..diffusion.gaussian import create_diffusion
 from ..models.dit import (DiT, DiT_models, DiTQuantConfig,
                           dit_forward_with_cfg, init_dit)
+from ..predictors.elsa import orthogonal_matrix as structured_matrix
 from ..specs import MxSpecs, finalize_mx_specs
 
 
@@ -40,12 +43,13 @@ def sample_dit(model: DiT, qcfg: DiTQuantConfig, class_labels: Sequence[int],
                num_steps: int = 100, cfg_scale: float = 4.0,
                z: Optional[torch.Tensor] = None,
                step_noise: Optional[Sequence[torch.Tensor]] = None,
-               device="cuda") -> torch.Tensor:
+               device="cuda", orthogonal_matrix=None) -> torch.Tensor:
     """Generate (n, 4, H, W) latents (pre-VAE) for the class labels.
 
     The initial latents ``z`` (n, C, H, W) and the per-step noise (one
     (2n, C, H, W) tensor per step, in sampling order) are drawn from
-    ``generator`` unless given.  The CFG denoise step runs eagerly."""
+    ``generator`` unless given.  The CFG denoise step runs eagerly.
+    ``orthogonal_matrix``: ELSA's projection."""
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the model is not on {device}")
@@ -72,8 +76,9 @@ def sample_dit(model: DiT, qcfg: DiTQuantConfig, class_labels: Sequence[int],
             tsi = tsi_exc if i in excluded else None
 
             def model_fn(xt, t, y, tsi=tsi):
-                return dit_forward_with_cfg(model, xt, t, y, qcfg, cfg_scale,
-                                            timestep_idx=tsi)
+                return dit_forward_with_cfg(
+                    model, xt, t, y, qcfg, cfg_scale, timestep_idx=tsi,
+                    orthogonal_matrix=orthogonal_matrix)
 
             noise = (draw(x.shape) if step_noise is None
                      else step_noise[step].to(device))
@@ -139,10 +144,14 @@ def main(argv=None):
         topk_key_bits=args.key_bits, contract=args.contract,
         activation_dtype=args.activation_dtype)
 
+    om = None
+    if args.pred_mode == "ELSA":
+        om = structured_matrix(cfg.head_dim, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
     lat = sample_dit(model, qcfg, args.classes, gen, args.num_steps,
-                     args.cfg_scale, device=device).cpu().numpy()
+                     args.cfg_scale, device=device,
+                     orthogonal_matrix=om).cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"sampled {lat.shape} in {dt:.1f}s "
           f"({len(args.classes) / dt:.3f} imgs/s)")

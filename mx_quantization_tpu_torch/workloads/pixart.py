@@ -9,11 +9,16 @@ ported yet (ROADMAP.md), so the CLI writes latents.
 Run (random weights unless --transformer-ckpt names a checkpoint):
     python -m mx_quantization_tpu_torch.workloads.pixart --mx-quant \\
         --self-top-k --self-k 77 --pred-mode two_step_leading_ones
+--image-size 1024 runs the alpha 1024^2 model (N = 4096 latent tokens, with
+micro-conditioning; its operating point adds --cross-top-k --cross-k 60
+--key-bits 8 --activation-dtype bfloat16 --prequantize); --pred-mode ELSA
+builds the structured orthogonal projection, as the JAX CLI does.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -24,6 +29,7 @@ from ..device import resolve_device
 from ..diffusion import DPMSolverMultistep
 from ..models.pixart import (PixArt, PixArtConfig, PixArtQuantConfig,
                              init_pixart, pixart_forward)
+from ..predictors.elsa import orthogonal_matrix as structured_matrix
 from ..specs import MxSpecs, finalize_mx_specs
 
 
@@ -45,11 +51,11 @@ def sample_pixart(model: PixArt, qcfg: PixArtQuantConfig,
                   generator: Optional[torch.Generator] = None,
                   num_steps: int = 20, guidance_scale: float = 4.5,
                   latents: Optional[torch.Tensor] = None,
-                  device="cuda") -> torch.Tensor:
+                  device="cuda", orthogonal_matrix=None) -> torch.Tensor:
     """Latents (n, C, H, W) for a batch of n prompts with CFG: the prompt
     rows and the null rows in one model call per DPM-Solver++(2M) step.
     The initial latents are ``latents`` if given, else drawn from
-    ``generator``."""
+    ``generator``.  ``orthogonal_matrix``: ELSA's projection."""
     device = resolve_device(device)
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the model is not on {device}")
@@ -77,7 +83,8 @@ def sample_pixart(model: PixArt, qcfg: PixArtQuantConfig,
             out = pixart_forward(
                 model, torch.cat([x, x], dim=0), ctx2, t, qcfg,
                 encoder_attention_mask=mask2,
-                timestep_idx=tsi_exc if si in excluded else None)
+                timestep_idx=tsi_exc if si in excluded else None,
+                orthogonal_matrix=orthogonal_matrix)
             eps_c, eps_u = out[:, :cfg.in_channels].chunk(2, dim=0)
             eps = eps_u + guidance_scale * (eps_c - eps_u)
             x, prev_x0 = solver.step(x, eps, ts, si, prev_x0)
@@ -118,6 +125,13 @@ def build_argparser():
     p.add_argument("--engine", default="fused", choices=["fused", "ref"])
     p.add_argument("--contract", default="exact",
                    choices=["exact", "serving"])
+    p.add_argument("--key-bits", type=int, default=32, choices=[8, 16, 32],
+                   help="top-k ranking precision (the 1024^2 point uses 8)")
+    p.add_argument("--activation-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--prequantize", action="store_true",
+                   help="snap the weights to the MX grid once and store "
+                        "them in bf16, as the 1024^2 point does")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -143,7 +157,8 @@ def main(argv=None):
         self_top_k=args.self_top_k, self_k=args.self_k,
         cross_top_k=args.cross_top_k, cross_k=args.cross_k,
         ex_pred=not args.no_ex_pred, pred_mode=args.pred_mode,
-        exclude_blocks=tuple(args.exclude_blocks), contract=args.contract)
+        exclude_blocks=tuple(args.exclude_blocks), contract=args.contract,
+        topk_key_bits=args.key_bits, activation_dtype=args.activation_dtype)
 
     if args.prompt_embeds:
         z = np.load(args.prompt_embeds)
@@ -173,12 +188,21 @@ def main(argv=None):
     else:
         print("WARNING: no --transformer-ckpt: random init (smoke test)")
         model = init_pixart(cfg, torch.Generator().manual_seed(0), device)
+    if args.prequantize and specs is not None:
+        from ..utils.prequantize import prequantize_weights
+        model, specs = prequantize_weights(model, specs,
+                                           serve_dtype=torch.bfloat16)
+        qcfg = dataclasses.replace(qcfg, mx_specs=specs)
 
+    om = None
+    if args.pred_mode == "ELSA":
+        om = structured_matrix(cfg.attention_head_dim, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
     lat = sample_pixart(model, qcfg, torch.from_numpy(embeds),
                         torch.from_numpy(mask), torch.from_numpy(null), gen,
-                        args.num_steps, args.guidance_scale, device=device)
+                        args.num_steps, args.guidance_scale, device=device,
+                        orthogonal_matrix=om)
     lat = lat.cpu().numpy()
     print(f"sampled {lat.shape} in {time.perf_counter() - t0:.1f}s")
     np.savez(args.out, latents=lat)

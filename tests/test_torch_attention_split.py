@@ -33,8 +33,8 @@ from mx_quantization_tpu.ops.kernels.topk_attention import \
 from mx_quantization_tpu_torch.attention import (TopKAttentionConfig,
                                                  topk_attention)
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
-    MAX_SPLIT_TOKENS, MAX_TILED_KEYS, fused_topk_attention,
-    fused_topk_attention_ref)
+    MAX_ELSA_BITS, MAX_SPLIT_TOKENS, MAX_TILED_KEYS, fused_topk_attention,
+    fused_topk_attention_qkv, fused_topk_attention_ref)
 from mx_quantization_tpu_torch.specs import finalize_mx_specs as port_specs
 from mx_quantization_tpu_torch.workloads.pixart import pixart_mx_specs
 from test_torch_attention import check_rows
@@ -136,8 +136,20 @@ def test_wrapper_uses_plain_only_on_cpu_and_keeps_its_domain():
     meta = torch.empty(1, 1, 32, 72, device="meta")
     with pytest.raises(ValueError):
         fused_topk_attention(meta, meta, meta, k=5, scale=0.125)
+    # every predictor of the TPU kernels is K3's; ELSA needs its projection,
+    # at most MAX_ELSA_BITS rows of width D; K2 serves ex_pred alone
+    with pytest.raises(ValueError, match="unknown pred_mode"):
+        fused_topk_attention(q, k, v, k=5, scale=0.125, pred_mode="sanger")
+    square = q[:, :, :40]
+    with pytest.raises(ValueError, match="projection"):
+        fused_topk_attention(square, k, v, k=5, scale=0.125, pred_mode="ELSA")
+    with pytest.raises(NotImplementedError, match="bits"):
+        fused_topk_attention(square, k, v, None, torch.zeros(MAX_ELSA_BITS + 1,
+                                                             72),
+                             k=5, scale=0.125, pred_mode="ELSA")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_topk_attention(q, k, v, k=5, scale=0.125, pred_mode="MXINT4")
+        fused_topk_attention_qkv(torch.zeros(1, 32, 3 * 72), 1, k=5,
+                                 scale=0.125, pred_mode="MXINT4")
 
 
 def _port_cfg(**kw):
@@ -204,10 +216,14 @@ def test_dispatch_raises_where_jax_leaves_its_kernels():
     with pytest.raises(NotImplementedError, match="emulation"):
         topk_attention(q, k, v, 0.1, specs,
                        serving._replace(contract="exact"))
-    with pytest.raises(NotImplementedError, match="ELSA"):
-        topk_attention(q, k, v, 0.1, specs, _port_cfg(pred_mode="ELSA"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topk_attention(q, k, v, 0.1, specs, _port_cfg(pred_mode="MXINT4"))
+    # ELSA takes the kernels for square attention only (JAX's
+    # elsa_kernel_ok): the reference takes the key norms at the query index
+    q64 = torch.cat([q, q[:, :, :24]], dim=2)
+    with pytest.raises(NotImplementedError, match="emulation"):
+        topk_attention(q64, k, v, 0.1, specs, _port_cfg(pred_mode="ELSA"))
+    with pytest.raises(ValueError, match="serving"):
+        topk_attention(q64, k, v, 0.1, specs,
+                       _port_cfg(pred_mode="ELSA", contract="serving"))
     # past the short path's limit the query-tiled kernel K4 takes over;
     # past the TPU kernels' key limit JAX leaves them for its XLA path
     long = torch.zeros(1, 1, MAX_SPLIT_TOKENS + 1, D)

@@ -212,9 +212,14 @@ def test_wrappers_use_plain_only_on_cpu():
     meta = torch.empty(1, 1, 640, 72, device="meta")
     with pytest.raises(ValueError):
         fused_topk_attention_tiled(meta, meta, meta, k=5, scale=0.125)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every predictor of the TPU kernels is K4's; a name outside them is not
+    with pytest.raises(ValueError, match="unknown pred_mode"):
         fused_topk_attention_tiled(q, k, v, k=5, scale=0.125,
-                                   pred_mode="MXINT4")
+                                   pred_mode="sanger")
+    got = fused_topk_attention_tiled(q, k, v, bias, k=20, scale=0.125,
+                                     pred_mode="MXINT4")
+    assert torch.equal(got, fused_topk_attention_ref(
+        q, k, v, bias, k=20, scale=0.125, pred_mode="MXINT4"))
 
 
 def test_topk_entry_matches_jax_at_640():

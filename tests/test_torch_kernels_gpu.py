@@ -1,7 +1,7 @@
 """The port's hand-written kernels against their plain PyTorch versions on
 the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA;
-K3: split q/k/v top-k attention, CUDA; K4: its query-tiled long-sequence
-path, CUDA; K5: LN + modulate + MX quantize,
+K3: split q/k/v top-k attention, CUDA, every predictor mode; K4: its
+query-tiled long-sequence path, CUDA; K5: LN + modulate + MX quantize,
 CUDA; K6: GELU + MX quantize, Triton; K7: split-emission qkv top-k
 attention, CUDA).
 
@@ -18,6 +18,9 @@ import torch
 from mx_quantization_tpu_torch.formats import format_params
 from mx_quantization_tpu_torch.models.dit import (DiTConfig, DiTQuantConfig,
                                                   dit_forward, init_dit)
+from mx_quantization_tpu_torch.models.pixart import (PixArtConfig,
+                                                     PixArtQuantConfig,
+                                                     init_pixart)
 from mx_quantization_tpu_torch.ops.kernels.ln_modulate_quantize import (
     MAX_CHANNELS, ln_modulate_quantize, ln_modulate_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.quantize import (
@@ -28,7 +31,11 @@ from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
     fused_topk_attention_qkv_t_ref, fused_topk_attention_ref,
     fused_topk_attention_tiled)
 from mx_quantization_tpu_torch.ops.linear import mm_f32
+from mx_quantization_tpu_torch.predictors.elsa import orthogonal_matrix
+from mx_quantization_tpu_torch.utils.prequantize import prequantize_weights
 from mx_quantization_tpu_torch.workloads.dit import dit_mx_specs, sample_dit
+from mx_quantization_tpu_torch.workloads.pixart import (pixart_mx_specs,
+                                                        sample_pixart)
 
 pytestmark = pytest.mark.gpu
 
@@ -339,9 +346,121 @@ def test_k4_refuses_what_it_does_not_serve(cuda):
     wide = torch.zeros(1, 1, 600, 136, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_topk_attention_tiled(wide, wide, wide, k=8, scale=0.125)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ELSA needs its projection, of at most MAX_ELSA_BITS rows of width D
+    with pytest.raises(ValueError, match="projection"):
         fused_topk_attention_tiled(q, q, q, k=8, scale=0.125,
-                                   pred_mode="MXINT4")
+                                   pred_mode="ELSA")
+    with pytest.raises(NotImplementedError, match="bits"):
+        fused_topk_attention_tiled(q, q, q, None,
+                                   torch.zeros(200, 72, device=cuda),
+                                   k=8, scale=0.125, pred_mode="ELSA")
+
+
+_NEW_MODES = ("MXINT4", "partial_Q", "partial_K", "true_ex", "threshold_ex",
+              "ELSA")
+
+
+def _proj(mode, cuda, D=72):
+    return orthogonal_matrix(D, cuda) if mode == "ELSA" else None
+
+
+@pytest.mark.parametrize("mode", _NEW_MODES)
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_split_modes_match_plain(cuda, mode, kernel, contract, in_dtype):
+    """Each predictor mode on K3 and K4, bit for bit: ELSA square (N = S =
+    200), the others N = 200 against S = 160 with the caption bias; f32 in
+    at key_bits 32 with flush, bf16 in at key_bits 8, bfloat 16."""
+    S = 200 if mode == "ELSA" else 160
+    args = [t if t is None else t.to(cuda) for t in _k3_inputs(
+        2, 2, 200, S, 72, in_dtype, 81, mode != "ELSA")]
+    bf16 = in_dtype == torch.bfloat16
+    kw = dict(k=33, scale=72 ** -0.5, key_bits=8 if bf16 else 32,
+              bfloat=16 if bf16 else 0, flush=not bf16, pred_mode=mode,
+              contract=contract, out_dtype=in_dtype)
+    fn = fused_topk_attention if kernel == "K3" else \
+        fused_topk_attention_tiled
+    got = fn(*args, _proj(mode, cuda), **kw)
+    want = fused_topk_attention_ref(*args, _proj(mode, cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", _NEW_MODES)
+@pytest.mark.parametrize("fmt", ["int4", "fp8_e4m3"])
+def test_split_modes_other_formats(cuda, mode, fmt):
+    """Each mode on the int4 grid (the block-grid codes) and an MXFP grid
+    (the CUDA-core operands), with subnormal blocks under flush, K3 and K4,
+    both tiers."""
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    q, k, v, _ = _k3_inputs(1, 2, 96, 96, 72, torch.float32, 91, False)
+    k[0, 0, 5, :32] = 1e-39
+    q[0, 1, 7, 32:64] = -2e-40
+    args = [t.to(cuda) for t in (q, k, v)]
+    for fn in (fused_topk_attention, fused_topk_attention_tiled):
+        for contract in ("exact", "serving"):
+            kw = dict(k=17, scale=72 ** -0.5, key_bits=32, flush=True,
+                      ebits=ebits, mbits=mbits, emax=emax, max_norm=max_norm,
+                      pred_mode=mode, contract=contract)
+            got = fn(*args, None, _proj(mode, cuda), **kw)
+            want = fused_topk_attention_ref(*args, None, _proj(mode, cuda),
+                                            **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_elsa_tie_heavy_rows_match_plain(cuda, kernel):
+    """Keys in groups of eight copies: every query row meets many keys at
+    one hamming distance, so each tier's tie rule decides the selection;
+    bit for bit, both tiers, key_bits 32 and 8."""
+    q, k, v, _ = _k3_inputs(1, 2, 256, 256, 72, torch.float32, 95, False)
+    k = k[:, :, ::8].repeat_interleave(8, dim=2).contiguous()
+    args = [t.to(cuda) for t in (q, k, v)]
+    fn = fused_topk_attention if kernel == "K3" else \
+        fused_topk_attention_tiled
+    for contract in ("exact", "serving"):
+        for kb in (32, 8):
+            kw = dict(k=37, scale=72 ** -0.5, key_bits=kb, pred_mode="ELSA",
+                      contract=contract)
+            got = fn(*args, None, _proj("ELSA", cuda), **kw)
+            want = fused_topk_attention_ref(*args, None, _proj("ELSA", cuda),
+                                            **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+def test_tiny_1024_shaped_pixart_on_card(cuda):
+    """PixArt-alpha 1024^2's shapes at two blocks of four heads: N = 4096
+    latent tokens with micro-conditioning, bf16 activations, prequantized
+    weights, self top-k two_step and cross top-k k = 60 over the masked
+    caption, both tiers: K4 in every attention, finite latents of shape
+    (1, 4, 128, 128)."""
+    cfg = PixArtConfig(sample_size=128, num_layers=2, num_attention_heads=4,
+                       caption_channels=64)
+    model = init_pixart(cfg, torch.Generator().manual_seed(0), cuda)
+    model, specs = prequantize_weights(model, pixart_mx_specs(),
+                                       serve_dtype=torch.bfloat16)
+    emb = _normal((1, 120, 64), 97).to(cuda)
+    mask = (torch.arange(120) < 77).float()[None].to(cuda)
+    null = _normal((1, 120, 64), 98).to(cuda)
+    for contract in ("exact", "serving"):
+        qcfg = PixArtQuantConfig(
+            mx_specs=specs, mx_quant=True, self_top_k=True, self_k=77,
+            cross_top_k=True, cross_k=60, ex_pred=True,
+            pred_mode="two_step_leading_ones", exclude_blocks=(1,),
+            topk_key_bits=8, activation_dtype="bfloat16", contract=contract)
+        before = (fused_topk_attention.launches,
+                  fused_topk_attention_tiled.launches)
+        lat = sample_pixart(model, qcfg, emb, mask, null, num_steps=2,
+                            latents=_normal((1, 4, 128, 128), 99),
+                            device=cuda)
+        torch.cuda.synchronize()
+        assert lat.shape == (1, 4, 128, 128) and torch.isfinite(lat).all()
+        assert fused_topk_attention.launches == before[0]
+        assert fused_topk_attention_tiled.launches == before[1] + 2 * 4
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4", "fp8_e4m3", "fp4_e2m1"])

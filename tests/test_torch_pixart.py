@@ -18,6 +18,7 @@ its inputs held to JAX's kernel under tests/test_torch_attention_split.py's
 criterion).
 """
 
+import dataclasses
 import importlib
 import os
 
@@ -55,6 +56,7 @@ from mx_quantization_tpu_torch.models.pixart import (PixArt, PixArtConfig,
                                                      pixart_forward)
 from mx_quantization_tpu_torch.utils.checkpoint import (
     load_pixart_checkpoint, pixart_params_from_jax)
+from mx_quantization_tpu_torch.workloads.pixart import main as pixart_main
 from mx_quantization_tpu_torch.workloads.pixart import pixart_mx_specs
 from test_torch_attention_split import assert_split_matches_jax
 from test_torch_dit import _check, _np
@@ -187,8 +189,9 @@ def answer_jax(monkeypatch, pending):
     monkeypatch.setattr(jax_pixart, "topk_attention", attention)
 
 
-def _jax_embed(p, x, enc, t, jcfg):
-    """JAX pixart_forward's embedding lines (models/pixart.py)."""
+def _jax_embed(p, x, enc, t, jcfg, resolution=None, aspect_ratio=None):
+    """JAX pixart_forward's embedding lines (models/pixart.py), the
+    micro-conditioning's included."""
     pe = p["pos_embed"]
     h = jax_patch_embed(x, pe["proj"]["weight"], pe["proj"]["bias"],
                         jcfg.patch_size) + pe["pe"]
@@ -197,6 +200,23 @@ def _jax_embed(p, x, enc, t, jcfg):
                      ada["emb_mlp0"]["weight"], ada["emb_mlp0"]["bias"])
     emb = jax_linear(jax.nn.silu(emb), ada["emb_mlp2"]["weight"],
                      ada["emb_mlp2"]["bias"])
+    if jcfg.use_additional_conditions:
+        B = x.shape[0]
+        if resolution is None:
+            resolution = jnp.full((B, 2), float(jcfg.sample_size * 8),
+                                  jnp.float32)
+        if aspect_ratio is None:
+            aspect_ratio = jnp.ones((B, 1), jnp.float32)
+
+        def size_emb(v, m0, m2):
+            e = jax_timestep_embedding(v.reshape(-1), 256)
+            e = jax_linear(e, ada[m0]["weight"], ada[m0]["bias"])
+            e = jax_linear(jax.nn.silu(e), ada[m2]["weight"], ada[m2]["bias"])
+            return e.reshape(v.shape[0], -1)
+
+        emb = emb + jnp.concatenate(
+            [size_emb(resolution, "res_mlp0", "res_mlp2"),
+             size_emb(aspect_ratio, "ar_mlp0", "ar_mlp2")], axis=-1)
     t6 = jax_linear(jax.nn.silu(emb), ada["linear"]["weight"],
                     ada["linear"]["bias"])
     cp = p["caption_projection"]
@@ -235,7 +255,9 @@ def check_stages(monkeypatch, calls, model, jparams, jcfg, jq):
         if name == "pixart_embed":
             _, x, enc, t, _ = args
             want = _jax_embed(jparams, *(jnp.asarray(_np(a))
-                                         for a in (x, enc, t)), jcfg)
+                                         for a in (x, enc, t)), jcfg,
+                              **{key: None if a is None else
+                                 jnp.asarray(_np(a)) for key, a in kw.items()})
             for got, w in zip(out, want):
                 _check(_np(got), w)
         elif name == "pixart_block_apply":
@@ -325,15 +347,24 @@ def test_mha_matches_jax(models, cross, monkeypatch):
 
 
 def test_unported_options_raise():
+    """Micro-conditioning and ELSA are ported; what still raises is ELSA in
+    the cross-attention (non-square: JAX leaves its kernels for the XLA
+    path there, whose port is not done) and the T5 and VAE flags."""
     cfg = PixArtConfig(**CFG_KW)
-    with pytest.raises(NotImplementedError, match="micro-conditioning"):
-        PixArt(PixArtConfig(**{**CFG_KW, "micro_conds": True}), device="cpu")
+    micro = PixArt(PixArtConfig(**{**CFG_KW, "micro_conds": True}),
+                   device="cpu")
+    assert micro.adaln_single.res_mlp0.weight.shape == (48, 256)
     model = PixArt(cfg, device="cpu")
     x, enc, t, _ = map(torch.from_numpy, pixart_inputs(2))
     # fuse_gelu is ported (kernel K6); without MX quantization it is a no-op
     assert torch.equal(
         pixart_forward(model, x, enc, t, PixArtQuantConfig(fuse_gelu=True)),
         pixart_forward(model, x, enc, t, PixArtQuantConfig()))
-    with pytest.raises(NotImplementedError, match="ELSA"):
-        pixart_forward(model, x, enc, t, PixArtQuantConfig(
-            mx_specs=pixart_mx_specs(), **{**QKW, "pred_mode": "ELSA"}))
+    elsa = PixArtQuantConfig(mx_specs=pixart_mx_specs(),
+                             **{**QKW, "pred_mode": "ELSA"})
+    assert torch.isfinite(pixart_forward(model, x, enc, t, elsa)).all()
+    with pytest.raises(NotImplementedError, match="emulation"):
+        pixart_forward(model, x, enc, t, dataclasses.replace(
+            elsa, cross_top_k=True, cross_k=5))
+    with pytest.raises(NotImplementedError, match="T5"):
+        pixart_main(["--device", "cpu", "--t5-path", "t5"])
