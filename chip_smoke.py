@@ -10,29 +10,33 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      parts) and K5 from csrc/, one nvcc each, started together (K1 and K6
      compile through Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
-     shapes (bf16/f32 in, bfloat 0/16) and at the PixArt sites (f32 in,
-     flush, bfloat 0/32)
+     shapes (bf16/f32 in, bfloat 0/16), at the PixArt sites (f32 in,
+     flush, bfloat 0/32) and at DeiT's five widths (100 x 197 rows, f32,
+     bfloat 32)
   4. K2 (fused qkv top-k attention) against its plain version at the DiT
-     shape, both contracts, top-k and dense, f32 and bf16 output, bit for
-     bit
+     shape, both contracts, top-k and dense, f32 and bf16 output, and at
+     the three DeiT qkv sites (f32 qkv, bfloat 0, key_bits 32, N = 197,
+     D = 64, H = 3 / 6 / 12, k = 80 / 60 and dense), bit for bit
   5. K3 (split q/k/v top-k attention) against its plain version at the
      three PixArt-alpha 256^2 sites at 200 rows (self top-k two_step k=77,
      self dense, cross dense S=120 with a caption-mask bias), both
-     contracts, f32 and bf16 output; then the domain cases at a small batch.
-     K4 (the query-tiled long-sequence path of the same function) against
-     the same plain version, bit for bit: at the DiT-XL/2 512^2 sites (8
-     rows, N = S = 1024, bf16, top-k k=154 ex_pred key_bits 8 and dense), at
-     PixArt-alpha 1024^2's (2 rows, N = 4096: self top-k two_step k=77 and
-     self dense, cross against 120 caption tokens with a mask bias, dense
-     and top-k k=60; f32 and bf16), all in both contracts, the plain version
-     taken per group of heads; the domain cases at a small batch; and K4
-     against K3 on shapes both take
+     contracts, f32 and bf16 output; the domain cases at a small batch;
+     DeiT-base's site ((100, 12, 197, 64) f32, key_bits 32, two_step k=30
+     and ELSA).  K4 (the query-tiled long-sequence path of the same
+     function) against the same plain version, bit for bit: at the DiT-XL/2
+     512^2 sites (8 rows, N = S = 1024, bf16, top-k k=154 ex_pred key_bits
+     8 and dense), at PixArt-alpha 1024^2's (2 rows, N = 4096: self top-k
+     two_step k=77 and self dense, cross against 120 caption tokens with a
+     mask bias, dense and top-k k=60; f32 and bf16), all in both contracts,
+     the plain version taken per group of heads; the domain cases at a
+     small batch; and K4 against K3 on shapes both take
   6. K5 (LN + modulate + MX quantize), K6 (GELU + MX quantize) and K7
      (split-emission qkv top-k attention) against their plain versions, bit
      for bit: K5 at the DiT site and its domain cases (C from 96 to its
      MAX_CHANNELS, rows in registers and in shared memory), K6 at the DiT fc2
-     site, PixArt's fc2 site and in erf form, K7 at the DiT site in both
-     tiers, top-k and dense, and K7 against K2 on the same values
+     site, PixArt's fc2 site and in erf form, and at DeiT-base's fc2 site
+     (erf, f32, bfloat 32), K7 at the DiT site in both tiers, top-k and
+     dense, and K7 against K2 on the same values
   7. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
      prequantized to bf16), 32 images with CFG (64 rows), 100 DDPM steps,
      serving tier then exact tier; then the same with the fused opt-ins
@@ -42,17 +46,24 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
-     tier
+     tier; the DeiT slice: DeiT-tiny (ex_pred k=80), DeiT-small (ex_pred
+     k=60) and DeiT-base (two_step k=30) at full width and depth (random
+     weights from a seed, prequantized), batches of 100 synthetic 224^2
+     images through ``workloads/deit.py`` ``evaluate``, serving tier then
+     exact, DeiT-small also serving with ``fuse_gelu`` (K6), warmed, 10
+     batches timed
      In 7 and 8 every launch count is set to 0 just before a run and read
      just after: each kernel of the path must have launched its per-forward
-     count times the steps, and no other kernel at all; each kernel's
-     launches per call site (shape, dtype, arguments) are kept
-  9. two serving steps of each path under torch.profiler: device busy
-     share, top kernels
+     count times the steps (DeiT: batches), and no other kernel at all;
+     each kernel's launches per call site (shape, dtype, arguments) are
+     kept
+  9. two serving steps of each sampling path and one serving batch of
+     DeiT-small and of DeiT-base under torch.profiler: device busy share,
+     top kernels
  10. kernel times with CUDA events at every call site the paths launched
      (calls queued behind a GPU sleep, so that the host's launch time
-     stays out), beside their bounds and plain versions, weighted by those
-     launches
+     stays out), each site first held bit for bit to its plain version,
+     beside their bounds and plain versions, weighted by those launches
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -80,6 +91,13 @@ PIXART_PROMPTS = 100  # the reference's batch (SURVEY.md, PixArt-alpha 256^2)
 CAPTION_TOKENS = 120
 PIXART1024_STEPS = 20  # tools/workload_probe.py pixart1024_probe
 MODE_PROMPTS = 8
+DEIT_BATCH = 100  # tools/workload_probe.py deit_probe
+DEIT_BATCHES = 10
+DEIT_TOKENS = 197  # 14 x 14 patches and the cls token
+# (model, predictor, k): tools/workload_probe.py:127-131
+DEIT_POINTS = (("deit_tiny_patch16_224", "ex_pred", 80),
+               ("deit_small_patch16_224", "ex_pred", 60),
+               ("deit_base_patch16_224", "two_step_leading_ones", 30))
 # K3's and K4's predictors beyond ex_pred and two_step
 NEW_MODES = ("MXINT4", "partial_Q", "partial_K", "true_ex", "threshold_ex",
              "ELSA")
@@ -224,6 +242,11 @@ def caption_bias(B, S, device, shortest=8):
 
 def main():
     import torch
+    start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[clock] {what} at {time.perf_counter() - start:.1f} s",
+              flush=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -234,6 +257,9 @@ def main():
     from mx_quantization_tpu_torch.models.pixart import (PixArtConfig,
                                                          PixArtQuantConfig,
                                                          init_pixart)
+    from mx_quantization_tpu_torch.models.vit import (VIT_CONFIGS,
+                                                      VitQuantConfig,
+                                                      init_vit, vit_forward)
     from mx_quantization_tpu_torch.ops.kernels import build
     from mx_quantization_tpu_torch.ops.kernels import \
         ln_modulate_quantize as lnq
@@ -246,6 +272,8 @@ def main():
                                                          sample_dit)
     from mx_quantization_tpu_torch.workloads.pixart import (pixart_mx_specs,
                                                             sample_pixart)
+    from mx_quantization_tpu_torch.workloads.deit import (default_mx_specs,
+                                                          evaluate)
     K1, K2, K3 = "mx_quantize", "fused_topk_attention_qkv", \
         "fused_topk_attention"
     K4 = "fused_topk_attention_tiled"
@@ -288,6 +316,7 @@ def main():
             if "registers" in line or "spill" in line or "Function pro" in line:
                 print(f"[build] {line.strip()[:150]}")
 
+    stamp("build done")
     # ---- 3. K1 against its plain version, bit for bit
     k1_err = 0.0
 
@@ -321,6 +350,11 @@ def main():
             check_k1(x, flush=True, bfloat=bfloat)
         print(f"[k1] {shape} f32 flush bfloat 0/32: bit-equal", flush=True)
     del x
+    # the DeiT sites: f32 activations, bfloat=32 (the identity), no flush
+    for c in (192, 384, 768, 1536, 3072):
+        check_k1(randn(DEIT_BATCH, DEIT_TOKENS, c), bfloat=32)
+    print(f"[k1] DeiT ({DEIT_BATCH}, {DEIT_TOKENS}, 192/384/768/1536/3072) "
+          "f32 bfloat 32: bit-equal", flush=True)
 
     # ---- 4. K2 against its plain version at the DiT shape
     B, N, H, D = 2 * DIT_IMAGES, 256, 16, 72
@@ -345,6 +379,26 @@ def main():
             if not torch.equal(got, want) or not torch.isfinite(got).all():
                 fail(f"K2 {contract} k={k} {out_dtype} differs from its "
                      "plain version")
+    # the DeiT qkv sites: f32 qkv, bfloat 0, key_bits 32, N = 197 (keys and
+    # tokens padded to 224), D = 64; DeiT-base's qkv site is block 11's
+    # dense call (its top-k blocks take K3)
+    for H, topk in ((3, 80), (6, 60), (12, None)):
+        qkv = randn(DEIT_BATCH, DEIT_TOKENS, 3 * H * 64)
+        for contract in ("serving", "exact"):
+            for k in (topk, DEIT_TOKENS) if topk else (DEIT_TOKENS,):
+                kw = dict(k=k, scale=64 ** -0.5, key_bits=32, bfloat=0,
+                          contract=contract, out_dtype=torch.float32)
+                got = ta.fused_topk_attention_qkv(qkv, H, **kw)
+                want = ta.fused_topk_attention_qkv_ref(qkv, H, **kw)
+                torch.cuda.synchronize()
+                diff = (got - want).abs().max().item()
+                k2_err = max(k2_err, diff)
+                print(f"[k2] DeiT H={H} {contract} k={k} f32: max |diff| "
+                      f"{diff:.3e}", flush=True)
+                if not torch.equal(got, want) or \
+                        not torch.isfinite(got).all():
+                    fail(f"K2 DeiT H={H} {contract} k={k} differs from its "
+                         "plain version")
     del qkv, got, want
 
     # ---- 5. K3 against its plain version, bit for bit (f32 and bf16
@@ -472,6 +526,19 @@ def main():
                 fail(f"K4 and K3 differ at {label} {contract}")
     del cases, sq, sk, sv, cq, ck, cv, lq, lk, lv, rq, rk, rv, hq, hk, hv
     del fq, fk, fv, wq, wk, wv, xq, xk, xv
+    # DeiT-base's split site: (100, 12, 197, 64) f32, key_bits 32, no flush,
+    # two_step k = 30 (the operating point) and ELSA (--pred-mode)
+    dq_, dk_ = (randn(DEIT_BATCH, 12, DEIT_TOKENS, 64, scale=4.0)
+                for _ in range(2))
+    dv_ = randn(DEIT_BATCH, 12, DEIT_TOKENS, 64)
+    for contract in ("exact", "serving"):
+        kw = dict(k=30, scale=64 ** -0.5, key_bits=32, contract=contract,
+                  out_dtype=torch.float32)
+        check_k3("DeiT-base two_step k=30", dq_, dk_, dv_, None,
+                 pred_mode="two_step_leading_ones", **kw)
+        check_k3("DeiT-base ELSA k=30", dq_, dk_, dv_, None, pred_mode="ELSA",
+                 proj=orthogonal_matrix(64, dev), **kw)
+    del dq_, dk_, dv_
 
     # ---- 5. K4 against the same plain version, bit for bit, the plain
     # version per group of heads (at (2, 16, 4096, 4096) one f32 score
@@ -738,6 +805,9 @@ def main():
              flush=True, bfloat=32)
     check_k6("PixArt fc2 site erf form", h, flush=True, bfloat=32,
              approximate=False)
+    h = randn(DEIT_BATCH, DEIT_TOKENS, 3072, scale=2.0)
+    check_k6("DeiT-base fc2 site (100, 197, 3072) f32 erf bfloat=32", h,
+             bfloat=32, approximate=False)
     del h
 
     H, D, Dp = 16, 72, 96
@@ -759,6 +829,7 @@ def main():
                         ta.fused_topk_attention_qkv(qkv, H, **kw))
     del qkv, qk_t, v, got
 
+    stamp("kernel checks done")
     # ---- 6./7. the slices
     main_launches = {n: 0 for n in wrappers}
     main_sites = {n: collections.Counter() for n in wrappers}
@@ -789,7 +860,7 @@ def main():
         tiers[f"{name} {contract}"] = dict(
             imgs_per_s=units / dt, step_ms=1e3 * dt / steps,
             max_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        print(f"[slice] {name} {contract}: {units} images x {steps} steps "
+        print(f"[slice] {name} {contract}: {units} images, {steps} steps "
               f"in {dt:.2f} s = {units / dt:.4f} imgs/s, step "
               f"{1e3 * dt / steps:.2f} ms, max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
@@ -1027,12 +1098,71 @@ def main():
         device=dev), 2)
     del pmodel, embeds, null
 
+    stamp("DiT and PixArt paths done")
+    # 8. the DeiT slice (tools/workload_probe.py deit_probe): each model at
+    # full width and depth, weights prequantized (f32), batches of 100
+    # synthetic 224^2 images with labels, through evaluate; per forward K1
+    # 48 (qkv, proj, fc1 and fc2 of 12 blocks) and, ex_pred, K2 12 (11
+    # top-k, block 11 dense); two_step (DeiT-base) K3 11 and K2 1 (block 11
+    # takes exclude_block_type, ex_pred); with fuse_gelu (serving) K6 12
+    # and K1 36
+    images = [randn(DEIT_BATCH, 3, 224, 224) for _ in range(DEIT_BATCHES)]
+    batches = [(x, torch.randint(0, 1000, (DEIT_BATCH,), generator=gen,
+                                 device=dev)) for x in images]
+    for name, pred, k in DEIT_POINTS:
+        t0 = time.perf_counter()
+        vcfg = VIT_CONFIGS[name]
+        vmodel = init_vit(vcfg, torch.Generator().manual_seed(0), dev)
+        vmodel, vspecs = prequantize_weights(vmodel, default_mx_specs())
+        print(f"[slice] {name} random weights, prequantized, in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        depth, short = vcfg.depth, name.split("_patch")[0]
+        plans = [("serving", False), ("exact", False)]
+        if name == "deit_small_patch16_224":
+            plans.append(("serving", True))
+        for contract, fuse in plans:
+            qc = VitQuantConfig(mx_specs=vspecs, mx_quant=True, top_k=True,
+                                k=k, pred_mode=pred, contract=contract,
+                                fuse_gelu=fuse)
+            if fuse:
+                per = {K1: 3 * depth, K6: depth, K2: depth}
+            elif pred == "ex_pred":
+                per = {K1: 4 * depth, K2: depth}
+            else:
+                per = {K1: 4 * depth, K2: 1, K3: depth - 1}
+            with torch.inference_mode():  # warm
+                logits = vit_forward(vmodel, images[0], qc)
+            if logits.shape != (DEIT_BATCH, 1000) or \
+                    not torch.isfinite(logits).all():
+                fail(f"{name} {contract}: logits not finite / wrong shape")
+            label = f"{short} {pred} k={k}" + (" fuse_gelu" if fuse else "")
+            stats = run_path(label, contract, DEIT_BATCHES, per,
+                             DEIT_BATCH * DEIT_BATCHES,
+                             lambda: evaluate(vmodel, qc, batches,
+                                              log_every=0, device=dev))
+            if stats["n"] != DEIT_BATCH * DEIT_BATCHES:
+                fail(f"{label} {contract}: evaluated {stats['n']} images")
+            print(f"[slice] {label} {contract}: {stats}; logits std "
+                  f"{logits.std().item():.4g}", flush=True)
+        if name != "deit_tiny_patch16_224":
+            qc = VitQuantConfig(mx_specs=vspecs, mx_quant=True, top_k=True,
+                                k=k, pred_mode=pred, contract="serving")
+            profile(f"{short} (one batch)", lambda: evaluate(
+                vmodel, qc, batches[:1], log_every=0, device=dev), 1)
+        del vmodel
+    del images, batches
+
+    stamp("DeiT paths done")
     # ---- 10. kernel times at every call site the paths launched, weighted
-    # by their launches there
+    # by their launches there, each site first held bit for bit to its plain
+    # version
     k1_sites = []
     for (shape, dtype, *args), n in sorted(main_sites[K1].items(),
                                            key=lambda kv: -kv[1]):
         x = randn(*shape, dtype=dtype)
+        if not torch.equal(mx_quantize(x, *args), mx_quantize_ref(x, *args)):
+            fail(f"K1 at {(shape, dtype, *args)} differs from its plain "
+                 "version")
         (ms, queued), (pms, _) = (time_ms(lambda: mx_quantize(x, *args), 200),
                                   time_ms(lambda: mx_quantize_ref(x, *args),
                                           10))
@@ -1055,6 +1185,10 @@ def main():
                                                key=lambda kv: -kv[1]):
         kw = dict(kw)
         x = randn(*shape, dtype=dtype)
+        if not torch.equal(ta.fused_topk_attention_qkv(x, heads, **kw),
+                           ta.fused_topk_attention_qkv_ref(x, heads, **kw)):
+            fail(f"K2 at {(shape, dtype, heads, kw)} differs from its plain "
+                 "version")
         (ms, queued), (pms, _) = (
             time_ms(lambda: ta.fused_topk_attention_qkv(x, heads, **kw), 20),
             time_ms(lambda: ta.fused_topk_attention_qkv_ref(x, heads, **kw),
@@ -1188,6 +1322,10 @@ def main():
     for (shape, dtype, *args), n in sorted(main_sites[K6].items(),
                                            key=lambda kv: -kv[1]):
         x = randn(*shape, scale=2.0, dtype=dtype)
+        if not torch.equal(gelu_quantize(x, *args),
+                           gelu_quantize_ref(x, *args)):
+            fail(f"K6 at {(shape, dtype, *args)} differs from its plain "
+                 "version")
         (ms, queued), (pms, _) = (
             time_ms(lambda: gelu_quantize(x, *args), 200),
             time_ms(lambda: gelu_quantize_ref(x, *args), 10))
@@ -1294,6 +1432,7 @@ def main():
              plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
              bound_by=k7["bound_by"], library_ms=None, sites=k7_sites),
     ]
+    stamp("kernel times done")
     print(json.dumps({"tiers": tiers, "launches_by_path": path_launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

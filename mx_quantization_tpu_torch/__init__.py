@@ -2,9 +2,9 @@
 
 The JAX package beside this one is the reference; this package keeps its
 module layout and names.  It covers DiT-XL/2 MXINT8 top-k sampling (with
-its fused opt-ins) and PixArt-alpha 256^2 sampling, each TPU kernel on their
-paths a hand-written Triton or CUDA C++ kernel (ROADMAP.md lists the
-slices).  Entry points run on the card
+its fused opt-ins), PixArt-alpha sampling and DeiT ImageNet evaluation,
+each TPU kernel on their paths a hand-written Triton or CUDA C++ kernel
+(ROADMAP.md lists the slices).  Entry points run on the card
 unless the caller passes ``device="cpu"``; on the CPU every kernel wrapper
 uses its plain PyTorch version.
 """

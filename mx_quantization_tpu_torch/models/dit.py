@@ -154,16 +154,18 @@ def modulate(x, shift, scale):
 
 # ----------------------------------------------------------------------
 class Affine(nn.Module):
-    """Holds one linear layer's ``weight`` (out, in, ...) and ``bias``; the
-    product is taken by ``ops.linear.linear`` with the plan's specs."""
+    """Holds one linear layer's ``weight`` (out, in, ...) and ``bias`` (None
+    with ``bias=False``); the product is taken by ``ops.linear.linear``
+    with the plan's specs."""
 
-    def __init__(self, in_f: int, out_f: int, device, kernel=()):
+    def __init__(self, in_f: int, out_f: int, device, kernel=(),
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(
             torch.zeros(out_f, in_f, *kernel, device=device),
             requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(out_f, device=device),
-                                 requires_grad=False)
+                                 requires_grad=False) if bias else None
 
 
 class DiTBlock(nn.Module):

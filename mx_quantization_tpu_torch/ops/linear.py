@@ -67,20 +67,30 @@ def linear(x, w, b=None, mx_specs=None):
     return _linear_fwd_fast(x, w, b, mx_specs)
 
 
-def gelu_linear(h, w, b, mx_specs, fuse_gelu: bool, contract: str):
-    """``linear(GELU_tanh(h), w, b)``: the MLP's second half in DiT and
-    PixArt blocks.  With ``fuse_gelu`` in the serving tier the GELU rides in
-    the linear's input quantize (``gelu_quantize_serving``, kernel K6) where
-    its gate holds, and the linear takes that output as prequantized; else
-    the unfused GELU, as the JAX package does."""
+def gelu_erf(h: torch.Tensor) -> torch.Tensor:
+    """The erf-form GELU as ``jax.nn.gelu(approximate=False)`` spells it,
+    ``0.5 * h * erfc(-h * sqrt(1/2))`` (``F.gelu`` takes ``erf``, which
+    rounds differently)."""
+    return 0.5 * h * torch.erfc(-h * 0.7071067811865476)
+
+
+def gelu_linear(h, w, b, mx_specs, fuse_gelu: bool, contract: str,
+                approximate: bool = True):
+    """``linear(GELU(h), w, b)``: the MLP's second half in DiT and PixArt
+    blocks (tanh form) and DeiT blocks (``approximate=False``: the erf
+    form).  With ``fuse_gelu`` in the serving tier the GELU rides in the
+    linear's input quantize (``gelu_quantize_serving``, kernel K6) where its
+    gate holds, and the linear takes that output as prequantized; else the
+    unfused GELU, as the JAX package does."""
     hq = None
     if (fuse_gelu and mx_specs is not None and contract == "serving"
             and not mx_specs.quantize_backprop
             and fused_eligible(mx_specs, mx_specs.a_elem_format,
                                mx_specs.w_elem_format)):
-        hq = gelu_quantize_serving(h, mx_specs, approximate=True)
+        hq = gelu_quantize_serving(h, mx_specs, approximate=approximate)
     if hq is None:
-        return linear(torch.nn.functional.gelu(h, approximate="tanh"), w, b,
-                      mx_specs=mx_specs)
+        g = (torch.nn.functional.gelu(h, approximate="tanh") if approximate
+             else gelu_erf(h))
+        return linear(g, w, b, mx_specs=mx_specs)
     return linear(hq.to(h.dtype), w, b,
                   mx_specs=mx_specs.replace(prequantized_activations=True))

@@ -1,12 +1,15 @@
-"""DiT and PixArt-alpha weights into the port: from the JAX package's
-parameter trees, and from the public checkpoint layouts (the DiT release,
-diffusers' PixArtTransformer2DModel); port of the DiT and PixArt parts of
-the JAX package's ``utils/checkpoint.py``.
+"""DiT, PixArt-alpha and DeiT weights into the port: from the JAX
+package's parameter trees, and from the public checkpoint layouts (the DiT
+release, diffusers' PixArtTransformer2DModel, timm's VisionTransformer);
+port of the JAX package's ``utils/checkpoint.py`` loaders.
 
-The port's ``DiT`` and ``PixArt`` modules name their parameters after the
-JAX trees (``blocks.<i>.attn.qkv.weight``, ``blocks.<i>.attn1.to_q.weight``,
-...), so the loaders produce state dicts in those names and hand them to
-``load_state_dict``.
+The port's ``DiT``, ``PixArt`` and ``ViT`` modules name their parameters
+after the JAX trees (``blocks.<i>.attn.qkv.weight``,
+``blocks.<i>.attn1.to_q.weight``, ``patch_embed.weight``, ...), so the
+loaders produce state dicts in those names and hand them to
+``load_state_dict``.  DeiT's position table is loaded as it is: the JAX
+loader's optional bicubic resize to another patch count is not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch import nn
 
 from ..models.dit import DiT, DiTConfig
 from ..models.pixart import PixArt, PixArtConfig
+from ..models.vit import ViT, VitConfig
 
 
 def _tensor(a) -> torch.Tensor:
@@ -57,6 +61,12 @@ def pixart_params_from_jax(np_tree: dict, cfg: PixArtConfig,
     """The JAX package's PixArt parameter tree -> a ``PixArt`` module (the
     position table is the module's own, computed from ``cfg``)."""
     return _fill_from_jax(PixArt(cfg, device=device), np_tree)
+
+
+def vit_params_from_jax(np_tree: dict, cfg: VitConfig,
+                        device="cuda") -> ViT:
+    """The JAX package's ViT parameter tree -> a ``ViT`` module."""
+    return _fill_from_jax(ViT(cfg, device=device), np_tree)
 
 
 def load_dit_checkpoint(path: str, depth: int = 28) -> Dict[str, torch.Tensor]:
@@ -137,4 +147,25 @@ def load_pixart_checkpoint(path: str, num_layers: int = 28
         # a linear without a bias adds zero
         out[f"{ours}.bias"] = sd.get(f"{theirs}.bias",
                                      torch.zeros(w.shape[0]))
+    return {k: v.detach().to(torch.float32) for k, v in out.items()}
+
+
+def load_deit_checkpoint(path: str, depth: int = 12
+                         ) -> Dict[str, torch.Tensor]:
+    """Read a public DeiT checkpoint (timm VisionTransformer state dict,
+    under a 'model' entry or bare) with ``torch.load`` and return a state
+    dict in the port's names, for ``ViT.load_state_dict``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt)
+    out = {"patch_embed.weight": sd["patch_embed.proj.weight"],
+           "patch_embed.bias": sd["patch_embed.proj.bias"]}
+    for name in ("cls_token", "pos_embed", "norm.weight", "norm.bias",
+                 "head.weight", "head.bias"):
+        out[name] = sd[name]
+    for i in range(depth):
+        for mod in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
+                    "mlp.fc2"):
+            for leaf in ("weight", "bias"):
+                key = f"blocks.{i}.{mod}.{leaf}"
+                out[key] = sd[key]
     return {k: v.detach().to(torch.float32) for k, v in out.items()}

@@ -1,1 +1,1 @@
-"""Workload entry points (slice 1: DiT sampling)."""
+"""Workload entry points: DiT and PixArt-alpha sampling, DeiT evaluation."""

@@ -3,7 +3,8 @@ the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA;
 K3: split q/k/v top-k attention, CUDA, every predictor mode; K4: its
 query-tiled long-sequence path, CUDA; K5: LN + modulate + MX quantize,
 CUDA; K6: GELU + MX quantize, Triton; K7: split-emission qkv top-k
-attention, CUDA).
+attention, CUDA), and the slices' forwards on the card against the same
+forwards on the plain versions.
 
 Marked ``gpu``; each test skips where no CUDA device exists.  On a machine
 with one:  python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
@@ -684,3 +685,94 @@ def test_tiny_long_sequence_sampling_on_card_matches_cpu(cuda):
         assert torch.isfinite(outs[1]).all()
         close = torch.isclose(outs[1], outs[0], rtol=1e-3, atol=1e-3)
         assert close.float().mean() >= 0.99
+
+
+# ---- DeiT (slice 7): f32 activations, bfloat 32 (the kernels' bfloat 0),
+# no flush, key_bits 32, N = 197 tokens (padded to 224), D = 64
+
+@pytest.mark.parametrize("H,k", [(3, 80), (6, 60), (12, 197)])
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+def test_k2_deit_sites(cuda, H, k, contract):
+    """K2 at DeiT's qkv sites (f32 qkv, bfloat 0, key_bits 32; k = 197 is
+    the last block's dense call), f32 output."""
+    x = _normal((4, 197, 3 * H * 64), 60 + H).to(cuda)
+    kw = dict(k=k, scale=64 ** -0.5, key_bits=32, bfloat=0,
+              contract=contract, out_dtype=torch.float32)
+    got = fused_topk_attention_qkv(x, H, **kw)
+    want = fused_topk_attention_qkv_ref(x, H, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pred_mode", ["two_step_leading_ones", "ELSA"])
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+def test_k3_deit_base_site(cuda, pred_mode, contract):
+    """K3 at DeiT-base's split site: (B, 12, 197, 64) f32, k = 30,
+    key_bits 32, no flush; ELSA with the structured projection."""
+    q, kk, v = (t.to(cuda) for t in _k3_inputs(
+        2, 12, 197, 197, 64, torch.float32, 61, False)[:3])
+    proj = orthogonal_matrix(64, cuda) if pred_mode == "ELSA" else None
+    kw = dict(k=30, scale=64 ** -0.5, key_bits=32, pred_mode=pred_mode,
+              contract=contract, out_dtype=torch.float32)
+    got = fused_topk_attention(q, kk, v, None, proj, **kw)
+    want = fused_topk_attention_ref(q, kk, v, None, proj, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_k6_deit_site(cuda):
+    """K6's erf form at DeiT-base's fc2 input, f32, bfloat 32."""
+    x = (2 * _normal((2, 197, 3072), 62)).to(cuda)
+    kw = dict(bfloat=32, approximate=False, out_dtype=torch.bfloat16)
+    got = gelu_quantize(x, **kw)
+    want = gelu_quantize_ref(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("plan", ["ex_pred exact", "ex_pred serving",
+                                  "two_step exact", "fuse_gelu serving"])
+def test_deit_tiny_on_card_matches_plain_versions(cuda, plan, monkeypatch):
+    """DeiT-tiny at full width and depth, 2 images: the forward through the
+    kernels against the same forward on the card with every kernel wrapper
+    replaced by its plain version.  The rest of the forward is the same
+    torch code on the same device, so the logits agree bit for bit; the
+    kernels' launches are DeiT's per-forward counts."""
+    from mx_quantization_tpu_torch import attention
+    from mx_quantization_tpu_torch.models.vit import (VIT_CONFIGS,
+                                                      VitQuantConfig,
+                                                      init_vit, vit_forward)
+    from mx_quantization_tpu_torch.ops.kernels import quantize as kq
+    from mx_quantization_tpu_torch.workloads.deit import default_mx_specs
+    mode, contract = plan.split()
+    cfg = VIT_CONFIGS["deit_tiny_patch16_224"]
+    model = init_vit(cfg, torch.Generator().manual_seed(0), cuda)
+    model, specs = prequantize_weights(model, default_mx_specs())
+    qcfg = VitQuantConfig(
+        mx_specs=specs, mx_quant=True, top_k=True,
+        k=30 if mode == "two_step" else 80,
+        pred_mode=("two_step_leading_ones" if mode == "two_step"
+                   else "ex_pred"),
+        contract=contract, fuse_gelu=mode == "fuse_gelu")
+    x = _normal((2, 3, 224, 224), 63).to(cuda)
+    wrappers = (kq.mx_quantize, kq.gelu_quantize,
+                attention.fused_topk_attention_qkv,
+                attention.fused_topk_attention)
+    before = [w.launches for w in wrappers]
+    with torch.inference_mode():
+        got = vit_forward(model, x, qcfg)
+    launches = [w.launches - b for w, b in zip(wrappers, before)]
+    per_fwd = {"ex_pred": [48, 0, 12, 0], "two_step": [48, 0, 1, 11],
+               "fuse_gelu": [36, 12, 12, 0]}[mode]
+    assert launches == per_fwd
+    monkeypatch.setattr(kq, "mx_quantize", kq.mx_quantize_ref)
+    monkeypatch.setattr(kq, "gelu_quantize", kq.gelu_quantize_ref)
+    monkeypatch.setattr(attention, "fused_topk_attention_qkv",
+                        fused_topk_attention_qkv_ref)
+    monkeypatch.setattr(attention, "fused_topk_attention",
+                        fused_topk_attention_ref)
+    with torch.inference_mode():
+        want = vit_forward(model, x, qcfg)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
