@@ -6,17 +6,21 @@
 Needs one CUDA GPU (Hopper: the CUDA kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
-  2. build: K2 and K7 (one source), K3 and K4 (one source, built in five
-     parts) and K5 from csrc/, one nvcc each, started together (K1 and K6
-     compile through Triton's JIT)
+  2. build: K2 and K7 (one source, built in six parts), K3 and K4 (one
+     source, built in five parts) and K5 from csrc/, one nvcc each, started
+     together (K1 and K6 compile through Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
      shapes (bf16/f32 in, bfloat 0/16), at the PixArt sites (f32 in,
      flush, bfloat 0/32) and at DeiT's five widths (100 x 197 rows, f32,
      bfloat 32)
   4. K2 (fused qkv top-k attention) against its plain version at the DiT
-     shape, both contracts, top-k and dense, f32 and bf16 output, and at
-     the three DeiT qkv sites (f32 qkv, bfloat 0, key_bits 32, N = 197,
-     D = 64, H = 3 / 6 / 12, k = 80 / 60 and dense), bit for bit
+     shape, both contracts, top-k and dense, f32 and bf16 output; K2 and
+     K7 on the same values in every predictor of the TPU kernels' qkv
+     entries at the DiT site in both tiers, and at N = 384 and 512 on the
+     int8 and fp8_e4m3 grids, K7 also against K2; DeiT-base's qkv site in
+     two_step (k = 30); and the three DeiT qkv sites (f32 qkv, bfloat 0,
+     key_bits 32, N = 197, D = 64, H = 3 / 6 / 12, k = 80 / 60 and dense),
+     bit for bit
   5. K3 (split q/k/v top-k attention) against its plain version at the
      three PixArt-alpha 256^2 sites at 200 rows (self top-k two_step k=77,
      self dense, cross dense S=120 with a caption-mask bias), both
@@ -41,17 +45,21 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      prequantized to bf16), 32 images with CFG (64 rows), 100 DDPM steps,
      serving tier then exact tier; then the same with the fused opt-ins
      (fuse_ln_modulate, fuse_gelu, qkv_layout="split_t": K5, K6, K7); then
-     DiT-XL/2 512^2 (N = 1024 tokens: K4 in every block), 4 images with CFG
-     (8 rows), 100 DDPM steps, serving tier then exact tier
+     the fused opt-ins in two_step_leading_ones (K7 in the new mode; 20
+     steps per tier, DIT_TWO_STEP_STEPS, cut from 100 to keep the script's
+     time); DiT-XL/2 in each other predictor of the
+     qkv entry (K2 in every block, 2 steps per tier) and with ELSA (K3);
+     then DiT-XL/2 512^2 (N = 1024 tokens: K4 in every block), 4 images
+     with CFG (8 rows), 100 DDPM steps, serving tier then exact tier
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
      tier; the DeiT slice: DeiT-tiny (ex_pred k=80), DeiT-small (ex_pred
      k=60) and DeiT-base (two_step k=30) at full width and depth (random
      weights from a seed, prequantized), batches of 100 synthetic 224^2
-     images through ``workloads/deit.py`` ``evaluate``, serving tier then
-     exact, DeiT-small also serving with ``fuse_gelu`` (K6), warmed, 10
-     batches timed
+     images through ``workloads/deit.py`` ``evaluate`` (K2 in every
+     block, as in JAX), serving tier then exact, DeiT-small also serving
+     with ``fuse_gelu`` (K6), warmed, 10 batches timed
      In 7 and 8 every launch count is set to 0 just before a run and read
      just after: each kernel of the path must have launched its per-forward
      count times the steps (DeiT: batches), and no other kernel at all;
@@ -84,6 +92,7 @@ BF16_OPS_PER_S = 989e12
 F32_INSTR_PER_S = 33.5e12
 
 DIT_STEPS = 100
+DIT_TWO_STEP_STEPS = 20  # the opt-ins path in two_step: ~0.3 s a step
 DIT_IMAGES = 32
 DIT512_IMAGES = 4  # tools/workload_probe.py dit512_probe
 PIXART_STEPS = 20
@@ -305,7 +314,7 @@ def main():
 
     # ---- 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ((ta.SOURCE, ta.K2_DEFINES), *ta.split_builds(),
+    sources = (*ta.qkv_builds(), *ta.split_builds(),
                (lnq.SOURCE, lnq.DEFINES))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda sd: build.build(*sd), sources))
@@ -379,9 +388,70 @@ def main():
             if not torch.equal(got, want) or not torch.isfinite(got).all():
                 fail(f"K2 {contract} k={k} {out_dtype} differs from its "
                      "plain version")
+    # every predictor of the TPU kernels' qkv entries, K2 and K7 on the same
+    # values (K7's operands cut from the same qkv), each bit for bit to its
+    # plain version and K7 to K2: at the DiT site in both tiers, and at N =
+    # 384 and 512 (the radix select; fewer warps or two phases where a cell
+    # does not fit) on the int8 and fp8_e4m3 grids, key_bits 8 and 32
+    k7_err = 0.0
+
+    def check_qkv(label, qkv, H, **kw):
+        nonlocal k2_err, k7_err
+        B, N, F = qkv.shape
+        D = F // (3 * H)
+        Dp = -(-D // 32) * 32
+        qk = torch.nn.functional.pad(
+            qkv[..., :2 * H * D].reshape(B, N, 2, H, D), (0, Dp - D))
+        qk_t = qk.permute(2, 3, 4, 0, 1).reshape(2 * H * Dp, B, N)
+        v = qkv[..., 2 * H * D:].contiguous()
+        got = ta.fused_topk_attention_qkv(qkv, H, **kw)
+        want = ta.fused_topk_attention_qkv_ref(qkv, H, **kw)
+        k7 = ta.fused_topk_attention_qkv_t(qk_t.contiguous(), v, H,
+                                           n_valid=N, **kw)
+        torch.cuda.synchronize()
+        d2 = (got.float() - want.float()).abs().max().item()
+        d7 = (k7.float() - got.float()).abs().max().item()
+        k2_err, k7_err = max(k2_err, d2), max(k7_err, d7)
+        lib0 = ta._qkv_library(0)
+        args = ta.qkv_call_args(N, N, D, {"approx": True, "ebits": 0, **kw})
+        plan = lib0.topk_attention_qkv_plan(*args)
+        print(f"[k2/k7] {label}: max |diff| {d2:.3e} (K7 - K2 {d7:.3e}); "
+              f"warps {plan & 15}, two phases {bool(plan & 16)}, radix "
+              f"{bool(plan & 32)}, key cache {bool(plan & 64)}, shared "
+              f"memory {lib0.topk_attention_qkv_smem_bytes(*args)} B, part "
+              f"{lib0.topk_attention_qkv_part(*args)}", flush=True)
+        if not torch.equal(got, want) or not torch.isfinite(got).all():
+            fail(f"K2 {label} differs from its plain version")
+        if not torch.equal(k7, got):
+            fail(f"K7 {label} differs from K2 (its plain version's)")
+
+    qkv = randn(B, N, 3 * H * D, dtype=torch.bfloat16)
+    for mode in ta.QKV_PRED_MODES:
+        for contract in ("serving", "exact"):
+            check_qkv(f"DiT site {mode} {contract}", qkv, H, k=154,
+                      scale=D ** -0.5, key_bits=8, bfloat=16,
+                      pred_mode=mode, contract=contract,
+                      out_dtype=torch.bfloat16)
+    for n in (384, 512):
+        qkv = randn(8, n, 3 * H * D, dtype=torch.bfloat16)
+        for fmt in ("int8", "fp8_e4m3"):
+            ebits, mbits, emax, max_norm, _ = format_params(fmt)
+            for mode in ta.QKV_PRED_MODES:
+                for contract, kb in (("serving", 8), ("exact", 32)):
+                    check_qkv(f"N={n} {fmt} {mode} {contract} "
+                              f"key_bits={kb}", qkv, H, k=n * 3 // 5,
+                              scale=D ** -0.5, key_bits=kb, bfloat=16,
+                              ebits=ebits, mbits=mbits, emax=emax,
+                              max_norm=max_norm, pred_mode=mode,
+                              contract=contract, out_dtype=torch.bfloat16)
     # the DeiT qkv sites: f32 qkv, bfloat 0, key_bits 32, N = 197 (keys and
-    # tokens padded to 224), D = 64; DeiT-base's qkv site is block 11's
-    # dense call (its top-k blocks take K3)
+    # tokens padded to 224), D = 64; DeiT-base's top-k blocks in two_step
+    # (k = 30) and its dense block 11
+    qkv = randn(DEIT_BATCH, DEIT_TOKENS, 3 * 12 * 64)
+    for contract in ("serving", "exact"):
+        check_qkv(f"DeiT-base two_step k=30 {contract}", qkv, 12, k=30,
+                  scale=64 ** -0.5, key_bits=32,
+                  pred_mode="two_step_leading_ones", contract=contract)
     for H, topk in ((3, 80), (6, 60), (12, None)):
         qkv = randn(DEIT_BATCH, DEIT_TOKENS, 3 * H * 64)
         for contract in ("serving", "exact"):
@@ -742,7 +812,7 @@ def main():
     del sq, sk, sv, cq, ck, cv, got, want
 
     # ---- 6. K5, K6 and K7 against their plain versions, bit for bit
-    errs = {K5: 0.0, K6: 0.0, K7: 0.0}
+    errs = {K5: 0.0, K6: 0.0, K7: k7_err}
 
     def check_equal(name, label, got, want):
         torch.cuda.synchronize()
@@ -952,10 +1022,44 @@ def main():
     profile("DiT-XL/2 fused opt-ins", lambda: sample_dit(
         model, qc, labels, gen, num_steps=2, device=dev), 2)
 
+    # 7. DiT-XL/2 with the fused opt-ins and two_step_leading_ones: K7 in
+    # the new mode (block 27 dense), the counts as above
+    for contract in ("serving", "exact"):
+        qc = dataclasses.replace(fused_q, pred_mode="two_step_leading_ones",
+                                 contract=contract)
+        sample_dit(model, qc, labels, gen, num_steps=2, device=dev)  # warm
+        lat = run_path("DiT-XL/2 fused opt-ins two_step", contract,
+                       DIT_TWO_STEP_STEPS, fused_per_fwd[contract],
+                       DIT_IMAGES,
+                       lambda: sample_dit(model, qc, labels, gen,
+                                          num_steps=DIT_TWO_STEP_STEPS,
+                                          device=dev))
+        if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
+                not torch.isfinite(lat).all():
+            fail(f"DiT fused opt-ins two_step {contract}: latents not finite "
+                 "/ wrong shape")
+        print(f"[slice] DiT-XL/2 fused opt-ins two_step {contract}: latent "
+              f"std {lat.float().std().item():.4g}")
+
+    # 7. DiT-XL/2 in each other predictor of the TPU kernels' qkv entry
+    # through the entry point, 2 steps per tier: K2 in every block (block
+    # 27 dense), as JAX routes them; per forward K1 114, K2 28
+    for mode in ta.QKV_PRED_MODES[1:]:
+        for contract in ("serving", "exact"):
+            qc = dataclasses.replace(dit_q, pred_mode=mode, contract=contract)
+            lat = run_path(f"DiT-XL/2 {mode}", contract, 2,
+                           {K1: 4 * depth + 2, K2: depth}, DIT_IMAGES,
+                           lambda: sample_dit(model, qc, labels, gen,
+                                              num_steps=2, device=dev))
+            if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
+                    not torch.isfinite(lat).all():
+                fail(f"DiT {mode} {contract}: latents not finite / wrong "
+                     "shape")
+
     # 7. DiT-XL/2 with ELSA through the entry point, 2 steps per tier, the
-    # structured projection: K2 serves ex_pred alone, so every top-k
-    # block's attention takes K3, and block 27 (dense) K2; per forward K1
-    # 114, K3 27, K2 1
+    # structured projection: ELSA is the split entry's, as in JAX, so every
+    # top-k block's attention takes K3, and block 27 (dense) K2; per
+    # forward K1 114, K3 27, K2 1
     for contract in ("serving", "exact"):
         qc = dataclasses.replace(dit_q, pred_mode="ELSA", contract=contract)
         lat = run_path("DiT-XL/2 ELSA", contract, 2,
@@ -1102,10 +1206,9 @@ def main():
     # 8. the DeiT slice (tools/workload_probe.py deit_probe): each model at
     # full width and depth, weights prequantized (f32), batches of 100
     # synthetic 224^2 images with labels, through evaluate; per forward K1
-    # 48 (qkv, proj, fc1 and fc2 of 12 blocks) and, ex_pred, K2 12 (11
-    # top-k, block 11 dense); two_step (DeiT-base) K3 11 and K2 1 (block 11
-    # takes exclude_block_type, ex_pred); with fuse_gelu (serving) K6 12
-    # and K1 36
+    # 48 (qkv, proj, fc1 and fc2 of 12 blocks) and K2 12 (11 top-k, in
+    # ex_pred or, DeiT-base, two_step; block 11 dense); with fuse_gelu
+    # (serving) K6 12 and K1 36
     images = [randn(DEIT_BATCH, 3, 224, 224) for _ in range(DEIT_BATCHES)]
     batches = [(x, torch.randint(0, 1000, (DEIT_BATCH,), generator=gen,
                                  device=dev)) for x in images]
@@ -1126,10 +1229,8 @@ def main():
                                 fuse_gelu=fuse)
             if fuse:
                 per = {K1: 3 * depth, K6: depth, K2: depth}
-            elif pred == "ex_pred":
-                per = {K1: 4 * depth, K2: depth}
             else:
-                per = {K1: 4 * depth, K2: 1, K3: depth - 1}
+                per = {K1: 4 * depth, K2: depth}
             with torch.inference_mode():  # warm
                 logits = vit_forward(vmodel, images[0], qc)
             if logits.shape != (DEIT_BATCH, 1000) or \
@@ -1194,14 +1295,17 @@ def main():
             time_ms(lambda: ta.fused_topk_attention_qkv_ref(x, heads, **kw),
                     2, warmup=1))
         b, t, f = shape
+        pred = kw["pred_mode"] if kw["k"] < t and kw["approx"] else None
         bound, by, terms = attention_bound(
             b * heads, t, t, f // (3 * heads), x.element_size(),
-            kw["out_dtype"].itemsize, kw["k"], kw["key_bits"], kw["k"] < t)
+            kw["out_dtype"].itemsize, kw["k"], kw["key_bits"], kw["k"] < t,
+            pred=pred)
         k2_sites.append(dict(contract=kw["contract"], k=kw["k"],
-                             shape=list(shape), dtype=str(dtype), launches=n,
-                             ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-                             queued=queued))
-        print(f"[time] K2 {kw['contract']} k={kw['k']} x{n}: {ms:.4f} ms "
+                             shape=list(shape), dtype=str(dtype),
+                             pred_mode=pred, launches=n, ms=ms, plain_ms=pms,
+                             bound_ms=bound, bound_by=by, queued=queued))
+        print(f"[time] K2 {tuple(shape)} {pred} {kw['contract']} "
+              f"k={kw['k']} x{n}: {ms:.4f} ms "
               f"(plain {pms:.2f} ms, bound {bound:.4f} ms by {by}: "
               f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
               f"queued ahead: {queued})", flush=True)
@@ -1358,21 +1462,28 @@ def main():
         qk_t[:, d:] = 0  # the projection's zero padding
         qk_t = qk_t.reshape(qs)
         v = randn(*vs, dtype=dtype)
+        if not torch.equal(
+                ta.fused_topk_attention_qkv_t(qk_t, v, heads, **kw),
+                ta.fused_topk_attention_qkv_t_ref(qk_t, v, heads, **kw)):
+            fail(f"K7 at {(qs, vs, dtype, heads, kw)} differs from its plain "
+                 "version")
         (ms, queued), (pms, _) = (
             time_ms(lambda: ta.fused_topk_attention_qkv_t(qk_t, v, heads,
                                                           **kw), 20),
             time_ms(lambda: ta.fused_topk_attention_qkv_t_ref(qk_t, v, heads,
                                                               **kw),
                     2, warmup=1))
+        pred = kw["pred_mode"] if kw["k"] < t and kw["approx"] else None
         bound, by, terms = attention_bound(
             b * heads, t, t, d, qk_t.element_size(), kw["out_dtype"].itemsize,
-            kw["k"], kw["key_bits"], kw["k"] < t)
+            kw["k"], kw["key_bits"], kw["k"] < t, pred=pred)
         k7_sites.append(dict(contract=kw["contract"], k=kw["k"],
                              qk_t_shape=list(qs), v_shape=list(vs),
-                             dtype=str(dtype), launches=n, ms=ms,
-                             plain_ms=pms, bound_ms=bound, bound_by=by,
+                             dtype=str(dtype), pred_mode=pred, launches=n,
+                             ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
                              queued=queued))
-        print(f"[time] K7 {kw['contract']} k={kw['k']} x{n}: {ms:.4f} ms "
+        print(f"[time] K7 {pred} {kw['contract']} k={kw['k']} x{n}: "
+              f"{ms:.4f} ms "
               f"(plain {pms:.2f} ms, bound {bound:.4f} ms by {by}: "
               f"{ {t: round(v, 4) for t, v in terms.items()} }; launches "
               f"queued ahead: {queued})", flush=True)

@@ -7,10 +7,11 @@ The flow is the reference's
   pred = approx(q) @ approx(k)^T (+ bias),
   attn = softmax over the top-k of pred,  out = MX(attn) @ MX(v),
 all inside one kernel: K2 (``fused_qkv_topk_attention``, self-attention from
-the fused qkv output) or K3 / K4 (``topk_attention``, split q/k/v with an
-optional key bias; K4 where N or S exceeds 512), all in
-``ops/kernels/topk_attention.py``.  K3 and K4 take every predictor of the
-JAX kernels, ELSA with the structured orthogonal projection
+the fused qkv output, N <= 512) or K3 / K4 (``topk_attention``, split q/k/v
+with an optional key bias; K4 where N or S exceeds 512), all in
+``ops/kernels/topk_attention.py``.  Each takes every predictor of the JAX
+kernel it replaces: K2 (and K7, DiT's split-emission entry) every one but
+ELSA, K3 and K4 ELSA too, with the structured orthogonal projection
 (``predictors/elsa.py``) unless the caller passes its own.  Where the JAX
 package would leave its kernels for the XLA emulation path, the port
 raises: the emulation engine is not ported yet (ROADMAP.md).
@@ -25,8 +26,7 @@ import torch
 from .formats import format_params
 from .ops.fastquant import fused_eligible
 from .ops.kernels.topk_attention import (MAX_TILED_KEYS, MAX_TOKENS,
-                                         QKV_GATE_TOKENS, QKV_PRED_MODES,
-                                         fused_topk_attention,
+                                         QKV_PRED_MODES, fused_topk_attention,
                                          fused_topk_attention_qkv)
 from .predictors.elsa import orthogonal_matrix as _structured_matrix
 
@@ -51,10 +51,9 @@ class TopKAttentionConfig(NamedTuple):
     contract: str = "exact"
 
 
-# the exponent-family predictors of the JAX kernels (ELSA takes them too,
-# gated separately: square attention only)
-_KERNEL_PRED_MODES = ("ex_pred", "two_step_leading_ones", "MXINT4",
-                      "partial_Q", "partial_K", "true_ex", "threshold_ex")
+# the exponent-family predictors of the JAX kernels, which K2 and K7 take
+# (K3 and K4 take ELSA too, gated separately: square attention only)
+_KERNEL_PRED_MODES = QKV_PRED_MODES
 # element formats the kernels quantize (every grid point is exact in bf16)
 _KERNEL_ELEM_FORMATS = ("int8", "int4", "int2", "fp8_e4m3", "fp8_e5m2",
                         "fp6_e3m2", "fp6_e2m3", "fp4", "fp4_e2m1")
@@ -88,28 +87,24 @@ def _bias_ok(bias, q: torch.Tensor, S: int) -> bool:
                             and bias.shape[3] == S)
 
 
-def fused_qkv_eligible(mx_specs, cfg: TopKAttentionConfig, n: int,
-                       max_tokens: int = MAX_TOKENS,
-                       pred_modes=QKV_PRED_MODES) -> bool:
-    """Can self-attention run on the fused qkv entry (K2)?  The port's K2
-    serves the ex_pred predictor (or none) and N <= MAX_TOKENS; other
-    self-attention takes the split entry (K3) through ``topk_attention``.
-    ``max_tokens`` and ``pred_modes`` widen the gate for split emission."""
+def fused_qkv_eligible(mx_specs, cfg: TopKAttentionConfig, n: int) -> bool:
+    """Can self-attention run on the fused qkv entry (K2)?  The JAX
+    package's gate: N <= MAX_TOKENS (512), the kernels' formats and
+    bfloats, and every predictor but ELSA (or none); other self-attention
+    takes the split entry (K3 or K4) through ``topk_attention``."""
     return (mx_specs is not None and cfg.mx_quant
             and _kernel_specs_ok(mx_specs, cfg)
-            and n <= max_tokens and mx_specs.block_size == 32
-            and (cfg.pred_mode in pred_modes or not cfg.approx_flag))
+            and n <= MAX_TOKENS and mx_specs.block_size == 32
+            and (cfg.pred_mode in _KERNEL_PRED_MODES
+                 or not cfg.approx_flag))
 
 
 def split_t_eligible(mx_specs, cfg: TopKAttentionConfig, n: int) -> bool:
     """Does DiT's ``qkv_layout="split_t"`` take the split-emission entry
     (K7)?  The JAX package's gate: N % 128 == 0, its fused qkv entry's
-    conditions (N <= QKV_GATE_TOKENS, every kernel predictor) and the fast
-    path's formats.  The port's K7 raises for what it does not serve yet
-    (N > MAX_TOKENS, predictors other than ex_pred), naming ROADMAP.md."""
+    conditions (``fused_qkv_eligible``) and the fast path's formats."""
     return (n % 128 == 0
-            and fused_qkv_eligible(mx_specs, cfg, n, QKV_GATE_TOKENS,
-                                   _KERNEL_PRED_MODES)
+            and fused_qkv_eligible(mx_specs, cfg, n)
             and fused_eligible(mx_specs, mx_specs.a_elem_format,
                                mx_specs.w_elem_format))
 

@@ -81,8 +81,7 @@ class DiTQuantConfig:
       * ``qkv_layout="split_t"``: the qkv projection emits q and k
         pre-transposed and attention runs as kernel K7 (K2's math).  Both
         tiers, where N % 128 == 0 and the fused qkv entry's conditions
-        hold; the port's K7 takes N <= 256 and the ex_pred predictor (or
-        none) and raises beyond them (ROADMAP.md).
+        hold (N <= 512, every predictor but ELSA), as in JAX.
     """
     mx_specs: Optional[MxSpecs] = None
     mx_quant: bool = False
@@ -291,11 +290,12 @@ def dit_attention(attn: nn.Module, x: torch.Tensor, cfg: DiTConfig,
                   orthogonal_matrix=None) -> torch.Tensor:
     """Self-attention, routed as the JAX package routes: with
     ``qkv_layout="split_t"``, where it applies, the split-emission
-    projection and kernel K7; else the fused qkv kernel (K2) where it serves
-    the config, else the split q/k/v entry (``topk_attention``: K3, or the
-    unquantized attention).  ``x_prequantized``: x is already on the MX
-    grid (K5's output), so the qkv projection skips its quantize;
-    ``orthogonal_matrix``: ELSA's projection."""
+    projection and kernel K7; else the fused qkv kernel (K2) where JAX's
+    gate takes it (N <= 512, every predictor but ELSA), else the split
+    q/k/v entry (``topk_attention``: K3 or K4 for ELSA and longer
+    sequences, or the unquantized attention).  ``x_prequantized``: x is
+    already on the MX grid (K5's output), so the qkv projection skips its
+    quantize; ``orthogonal_matrix``: ELSA's projection."""
     B, N, C = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     mxs = specs if attn_cfg.mx_quant else None

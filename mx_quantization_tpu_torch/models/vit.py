@@ -187,8 +187,9 @@ def vit_attention(attn: nn.Module, x: torch.Tensor, cfg: VitConfig,
                   specs: Optional[MxSpecs], attn_cfg: TopKAttentionConfig,
                   orthogonal_matrix=None) -> torch.Tensor:
     """Self-attention (reference QuantizedAttention.forward), routed as the
-    JAX package routes: the fused qkv kernel (K2) where it serves the
-    config, else the split q/k/v entry (``topk_attention``: K3, or the
+    JAX package routes: the fused qkv kernel (K2) where JAX's gate takes
+    it (N <= 512, every predictor but ELSA: DeiT's ex_pred and two_step),
+    else the split q/k/v entry (``topk_attention``: K3 for ELSA, or the
     unquantized attention); ``orthogonal_matrix`` is ELSA's projection."""
     B, N, C = x.shape
     H, D = cfg.num_heads, cfg.head_dim

@@ -6,7 +6,8 @@ fused qkv output; it replaces the TPU kernel
 ``fused_topk_attention_qkv``.  K7 (the same source, another staging) takes
 q and k pre-transposed (2*H*Dp, B, N) and v (B, N, H*D) from the
 split-emission qkv projection; it replaces ``fused_topk_attention_qkv_t``
-and equals K2 bit for bit on the same q, k, v values.  K3
+and equals K2 bit for bit on the same q, k, v values; the two take the TPU
+entries' whole domain, N <= MAX_TOKENS and every predictor but ELSA.  K3
 (``csrc/topk_attention_split.cu``) takes split q (B, H, N, D) and k, v
 (B, H, S, D), S != N allowed, with an optional key bias (B, 1, 1, S); it
 replaces the short path of ``fused_topk_attention`` (``_split_impl``, N and
@@ -39,15 +40,15 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     then scales; K3 and K4 add the bias
   * ex_pred scores: sign * 2^(block exponent) operands (zeros count as +,
     padded d masked), summed per block and the blocks in order
-  * two_step_leading_ones scores (K3, K4): the operand sign * e * (2^l1 +
+  * two_step_leading_ones scores: the operand sign * e * (2^l1 +
     2^l2) / 64 per element (e the block exponent, l1 and l2 the leading
     powers of two of the integer mantissa), cast to bf16; on the int grids
     that is n / 64 for an integer |n| <= 12288, so the dot product over
     every d is taken exactly and rounded to f32 once (the kernels: byte
     planes of n in int8 mma, combined in int64); MXFP: the products in d
     order per block, the blocks in order
-  * K3's and K4's other predictors, per element of the quantized q and k
-    (JAX ``_prep_side``): MXINT4 re-quantizes the side (after its bf16
+  * the other predictors, per element of the quantized q and k (JAX
+    ``_prep_side``): MXINT4 re-quantizes the side (after its bf16
     round) to the int4 grid; partial_Q keeps q's values and takes ex_pred's
     operand for k, partial_K the reverse; threshold_ex sign * 2^max(te,
     e - 1) with te the value's own exponent (0 at a zero value); true_ex
@@ -57,19 +58,21 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     add in order; true_ex (every format) and every predictor of the MXFP
     grids sum their products in d order per block, the blocks in order,
     on the CUDA cores (true_ex takes that kernel's true score and PV too)
-  * ELSA: the hash of a quantized row is the sign (>= 0) of each row of
-    ``proj`` (bits, D) times it, the products rounded in f32 and added in d
-    order; hamming = the differing bits; the score is sqrt(sum kv^2) of the
-    key AT THE QUERY'S INDEX (0 past the keys; the reference's square-only
-    quirk) times cos(max(pi / bits * hamming - 0.127, 0)), the cosines a
-    table of bits + 1 float32 values (``_elsa_cos_table``)
+  * ELSA (K3 and K4 only, as in JAX): the hash of a quantized row is the
+    sign (>= 0) of each row of ``proj`` (bits, D) times it, the products
+    rounded in f32 and added in d order; hamming = the differing bits; the
+    score is sqrt(sum kv^2) of the key AT THE QUERY'S INDEX (0 past the
+    keys; the reference's square-only quirk) times cos(max(pi / bits *
+    hamming - 0.127, 0)), the cosines a table of bits + 1 float32 values
+    (``_elsa_cos_table``)
   * K3 and K4 add the bias to the predictor scores too, before the padded keys
     are masked
   * monotone keys truncated to key_bits; the k-th key and the count of
-    greater keys (the plain versions and K2 by bisection, K3 and K4 by a
-    radix select of 8-bit digits: the same key); exact tier: greater keys
-    plus ties lowest index first up to k; serving tier: every key >= the
-    k-th; dense (k >= number of keys): every valid key
+    greater keys (the plain versions by bisection; K2 and K7 by bisection
+    over keys packed in registers at key_bits 8 up to 256 keys, else, as
+    K3 and K4, by a radix select of 8-bit digits: the same key); exact
+    tier: greater keys plus ties lowest index first up to k; serving tier:
+    every key >= the k-th; dense (k >= number of keys): every valid key
   * masked softmax (K3 and K4: the softmax sum takes 32 strided sums of
     keys m + 32 i in i order, then halves them in a tree, ``lane_sum``;
     K2 and K7: sixteen strided sums of keys m + 16 i, then a halving tree,
@@ -105,11 +108,9 @@ from . import build
 
 SOURCE = "topk_attention_qkv.cu"
 SPLIT_SOURCE = "topk_attention_split.cu"
-# K2 holds a whole head in shared memory: at most MAX_TOKENS tokens
-MAX_TOKENS = 256
-# the TPU kernels' qkv entries take up to QKV_GATE_TOKENS tokens; DiT's
-# split-emission gate keeps that limit, and K7 raises above MAX_TOKENS
-QKV_GATE_TOKENS = 512
+# K2 and K7 hold a whole head in shared memory: at most MAX_TOKENS tokens,
+# the TPU kernels' qkv entries' limit
+MAX_TOKENS = 512
 # K3 stages the keys in chunks: at most MAX_SPLIT_TOKENS queries and keys
 # (the TPU kernel's short path); longer sequences are kernel K4's
 MAX_SPLIT_TOKENS = 512
@@ -122,14 +123,17 @@ K3_DEFINES = (("K3_MAX_TOKENS", MAX_SPLIT_TOKENS),
               ("MAX_HEAD_DIM", MAX_HEAD_DIM))
 K4_DEFINES = (("K4_MAX_KEYS", MAX_TILED_KEYS),)
 SPLIT_DEFINES = K3_DEFINES + K4_DEFINES  # K3 and K4 share their source
-# the split source builds in parts, each a library with its share of the
-# kernels, so that the parts compile side by side (``split_builds``); the
-# source's topk_attention_split_part names the part that takes a call
+# each source builds in parts, each a library with its share of the
+# kernels, so that the parts compile side by side (``qkv_builds``,
+# ``split_builds``); the source's topk_attention_qkv_part and
+# topk_attention_split_part name the part that takes a call
+QKV_PARTS = 6
 SPLIT_PARTS = 5
-QKV_PRED_MODES = ("ex_pred",)
 # every predictor of the TPU kernels; the index is the C interface's number
 SPLIT_PRED_MODES = ("ex_pred", "two_step_leading_ones", "MXINT4", "partial_Q",
                     "partial_K", "true_ex", "threshold_ex", "ELSA")
+# the TPU kernels' qkv entries take every predictor but ELSA
+QKV_PRED_MODES = SPLIT_PRED_MODES[:-1]
 # ELSA's hash holds at most this many bits (a row of the projection each;
 # the kernels keep four 32-bit words a row)
 MAX_ELSA_BITS = 128
@@ -146,9 +150,9 @@ def _check_args(pred_mode, approx, contract, key_bits, block_size,
         raise ValueError(f"unknown pred_mode {pred_mode!r}")
     if approx and pred_mode not in modes:
         raise NotImplementedError(
-            f"pred_mode={pred_mode!r}: this kernel serves {modes}; the split "
-            "entry (kernel K3) serves it, and K2's and K7's remaining modes "
-            "are not ported yet (ROADMAP.md)")
+            f"pred_mode={pred_mode!r}: this kernel serves {modes}, as the "
+            "TPU kernel's qkv entry does; the split entry (kernel K3) serves "
+            "it")
     if contract not in ("exact", "serving"):
         raise ValueError(f"unknown contract {contract!r}")
     if key_bits not in (8, 16, 32):
@@ -357,78 +361,25 @@ def _attention_probs(st: torch.Tensor, s_sel, n_keys: int, *, k: int,
 
 
 def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
-                                 k: int, scale: float, block_size: int = 32,
-                                 mbits: int = 8, scale_bits: int = 8,
-                                 approx: bool = True,
-                                 pred_mode: str = "ex_pred",
-                                 key_bits: int = 32,
-                                 out_dtype=torch.float32, bfloat: int = 0,
-                                 flush: bool = False, ebits: int = 0,
-                                 emax: int = 0, max_norm: float = 0.0,
-                                 contract: str = "exact",
-                                 n_valid: Optional[int] = None
+                                 k: int, scale: float,
+                                 n_valid: Optional[int] = None, **kw
                                  ) -> torch.Tensor:
-    """Plain PyTorch version of K2, vectorized over (batch, head).  Keys at
-    or past ``n_valid`` (default: all N tokens) are masked; every token
-    gets its query row."""
-    _check_args(pred_mode, approx, contract, key_bits, block_size)
-    relaxed = contract == "serving"
-    fmt = FormatParams(ebits, mbits, emax, max_norm, 0.0)
+    """Plain PyTorch version of K2: q, k and v cut from the fused layout and
+    handed to the plain attention K3 and K4 share (``_attention_ref``),
+    with K2's softmax sum (``_fragment_sum``).  Keys at or past ``n_valid``
+    (default: all N tokens) are masked; every token gets its query row.
+    Keywords as ``fused_topk_attention_ref``'s (no bias, no ELSA)."""
+    _check_args(kw.get("pred_mode", "ex_pred"), kw.get("approx", True),
+                kw.get("contract", "exact"), kw.get("key_bits", 32),
+                kw.get("block_size", 32))
     B, N, F = qkv.shape
     n_valid = N if n_valid is None else n_valid
     H = num_heads
     D = F // (3 * H)
-    Np = _round_up(N, 32)
-    Dp = _round_up(max(D, 8), 32)
-    nb = Dp // 32
-
-    x = qkv.to(torch.float32)
-    if bfloat == 16 and qkv.dtype != torch.bfloat16:
-        x = bf16_round_half_away(x)
-    x = x.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # (3, B, H, N, D)
-    x = torch.nn.functional.pad(x, (0, Dp - D, 0, Np - N))
-    blocks = x[:2].reshape(2, B, H, Np, nb, 32)
-    qk, e = quantize_blocks(blocks, fmt, scale_bits, flush)
-    vt = x[2, ..., :D].transpose(-1, -2).reshape(B, H, D, Np // 32, 32)
-    int_fmt = ebits == 0
-    shift = mbits - 2
-    if int_fmt:  # the kernels' int8 grid points and exponents
-        qkm, qke = _mx_mantissas(blocks, fmt, scale_bits, flush)
-        st = _block_scaled_dot(qkm[0], qke[0], qkm[1], qke[1], shift)
-        vm, ve = _mx_mantissas(vt, fmt, scale_bits, flush)
-        v = (vm * _pow2_sub(ve - shift)[..., None]).reshape(
-            B, H, D, Np).transpose(-1, -2)  # (B, H, Np, D)
-    else:
-        st = _blocks_in_order(qk[0], qk[1])
-        v, _ = quantize_blocks(vt, fmt, scale_bits, flush)
-        v = v.reshape(B, H, D, Np).transpose(-1, -2)
-    if bfloat == 16 and not relaxed:
-        st = bf16_round_half_away(st)
-    st = st * scale
-
-    s_sel = None
-    if approx and k < n_valid:
-        a = _ex_pred_operand(qk, e, D)
-        s_sel = _blockwise_scores(a[0], a[1])
-    attn = _attention_probs(st, s_sel, n_valid, k=k, key_bits=key_bits,
-                            relaxed=relaxed, bfloat=bfloat, fmt=fmt,
-                            scale_bits=scale_bits, flush=flush,
-                            row_sum=_fragment_sum, requantize=False)
-
-    if relaxed:  # bf16 probabilities: key order
-        out = _dot_in_order(attn, v)
-    else:
-        ab = attn.reshape(B, H, Np, Np // 32, 32)
-        if int_fmt:
-            pm, pe = _mx_mantissas(ab, fmt, scale_bits, flush, nonneg=True)
-            out = _block_scaled_dot(pm, pe, vm, ve, shift)
-        else:
-            pv, _ = quantize_blocks(ab, fmt, scale_bits, flush, nonneg=True)
-            out = _blocks_in_order(pv, v.transpose(-1, -2).reshape(
-                B, H, D, Np // 32, 32))
-        out = bf16_round_half_away(out) if bfloat == 16 else out
-    out = out[:, :, :N].permute(0, 2, 1, 3).reshape(B, N, H * D)
-    return out.to(out_dtype)
+    q, k_, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+    out = _attention_ref(q, k_[:, :, :n_valid], v[:, :, :n_valid], None,
+                         None, _fragment_sum, k=k, scale=scale, **kw)
+    return out.permute(0, 2, 1, 3).reshape(B, N, H * D)
 
 
 def _split_t_shapes(qk_t: torch.Tensor, v: torch.Tensor, num_heads: int):
@@ -644,21 +595,29 @@ def _split_score_sums(q: torch.Tensor, k_: torch.Tensor, fmt,
 
 
 def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
-                             v: torch.Tensor, bias=None, proj=None, *,
-                             k: int, scale: float, block_size: int = 32,
-                             mbits: int = 8, scale_bits: int = 8,
-                             approx: bool = True,
-                             pred_mode: str = "ex_pred",
-                             key_bits: int = 32, out_dtype=torch.float32,
-                             bfloat: int = 0, flush: bool = False,
-                             ebits: int = 0, emax: int = 0,
-                             max_norm: float = 0.0,
-                             contract: str = "exact") -> torch.Tensor:
+                             v: torch.Tensor, bias=None, proj=None,
+                             **kw) -> torch.Tensor:
     """Plain PyTorch version of K3 and K4, vectorized over (batch, head,
     query): q (B, H, N, D), k and v (B, H, S, D), bias (B, 1, 1, S) or
-    None, proj (bits, D) for ELSA -> (B, H, N, D)."""
-    _check_args(pred_mode, approx, contract, key_bits, block_size,
-                SPLIT_PRED_MODES)
+    None, proj (bits, D) for ELSA -> (B, H, N, D).  Keywords as the
+    wrappers'."""
+    _check_args(kw.get("pred_mode", "ex_pred"), kw.get("approx", True),
+                kw.get("contract", "exact"), kw.get("key_bits", 32),
+                kw.get("block_size", 32), SPLIT_PRED_MODES)
+    return _attention_ref(q, k_, v, bias, proj, lane_sum, **kw)
+
+
+def _attention_ref(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
+                   bias, proj, row_sum, *, k: int, scale: float,
+                   block_size: int = 32, mbits: int = 8, scale_bits: int = 8,
+                   approx: bool = True, pred_mode: str = "ex_pred",
+                   key_bits: int = 32, out_dtype=torch.float32,
+                   bfloat: int = 0, flush: bool = False, ebits: int = 0,
+                   emax: int = 0, max_norm: float = 0.0,
+                   contract: str = "exact") -> torch.Tensor:
+    """The plain attention of K2, K3, K4 and K7 (the caller checks the
+    arguments): ``row_sum`` is the softmax sum's order, K3's and K4's
+    ``lane_sum`` or K2's and K7's ``_fragment_sum``."""
     relaxed = contract == "serving"
     fmt = FormatParams(ebits, mbits, emax, max_norm, 0.0)
     B, H, N, D = q.shape
@@ -697,7 +656,7 @@ def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
     attn = _attention_probs(st, s_sel, S, k=k, key_bits=key_bits,
                             relaxed=relaxed, bfloat=bfloat, fmt=fmt,
                             scale_bits=scale_bits, flush=flush,
-                            requantize=False)
+                            row_sum=row_sum, requantize=False)
 
     if relaxed:  # bf16 probabilities: key order
         out = _dot_in_order(attn, vq)
@@ -717,23 +676,59 @@ def fused_topk_attention_ref(q: torch.Tensor, k_: torch.Tensor,
 # ----------------------------------------------------------------------
 # kernel wrapper
 # ----------------------------------------------------------------------
+def qkv_builds():
+    """(source, definitions) of each part of K2's and K7's build."""
+    return [(SOURCE, K2_DEFINES + (("QKV_PART", i),))
+            for i in range(QKV_PARTS)]
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    return bind_qkv_library(build.load(SOURCE, K2_DEFINES))
+def _qkv_library(part: int) -> ctypes.CDLL:
+    return bind_qkv_library(build.load(*qkv_builds()[part]))
 
 
 def bind_qkv_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from ``SOURCE``."""
-    lib.topk_attention_qkv_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.topk_attention_qkv_smem_bytes.restype = ctypes.c_longlong
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.topk_attention_qkv.argtypes = [p, p, i, i, i, i, i, i, i, f, i, i,
-                                       i, i, i, i, i, i, f, i, p]
-    lib.topk_attention_qkv.restype = ctypes.c_int
-    lib.topk_attention_qkv_t.argtypes = [p, p, p] + [i] * 9 + [f] + [
-        i] * 8 + [f, i, p]
-    lib.topk_attention_qkv_t.restype = ctypes.c_int
+    lib.topk_attention_qkv_smem_bytes.argtypes = [i] * 9
+    lib.topk_attention_qkv_smem_bytes.restype = ctypes.c_longlong
+    lib.topk_attention_qkv_plan.argtypes = [i] * 9
+    lib.topk_attention_qkv_plan.restype = i
+    lib.topk_attention_qkv_part.argtypes = [i] * 9
+    lib.topk_attention_qkv_part.restype = i
+    lib.topk_attention_qkv.argtypes = [p, p] + [i] * 7 + [f] + [i] * 9 + [
+        f, i, p]
+    lib.topk_attention_qkv.restype = i
+    lib.topk_attention_qkv_t.argtypes = [p] * 3 + [i] * 9 + [f] + [
+        i] * 9 + [f, i, p]
+    lib.topk_attention_qkv_t.restype = i
     return lib
+
+
+def qkv_call_args(N: int, n_valid: int, D: int, kw) -> tuple:
+    """The shape queries' arguments of a K2 or K7 call: Nq, n_valid, D,
+    topk, approx, pred_mode (``_pred_index``), key_bits, relaxed, ebits."""
+    return (N, n_valid, D, int(kw["k"]), int(kw["approx"]), _pred_index(kw),
+            int(kw["key_bits"]), int(kw["contract"] == "serving"),
+            int(kw["ebits"]))
+
+
+def _qkv_lib(name: str, N: int, n_valid: int, D: int, kw):
+    """The library (the build part) that launches a K2 or K7 call; raises
+    where the kernel cannot take it."""
+    if N > MAX_TOKENS or D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name} holds a head in shared memory and takes N <= "
+            f"{MAX_TOKENS}, D <= {MAX_HEAD_DIM} (got N={N}, D={D}); the "
+            "split entry (kernel K3 or K4) takes longer sequences")
+    part = _qkv_library(0).topk_attention_qkv_part(
+        *qkv_call_args(N, n_valid, D, kw))
+    if part < 0:
+        raise NotImplementedError(
+            f"{name}: a cell of N={N}, D={D} with {kw['pred_mode']}, "
+            f"ebits={kw['ebits']}, key_bits={kw['key_bits']} does not fit a "
+            "block's shared memory (ROADMAP.md)")
+    return _qkv_library(part)
 
 
 def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
@@ -772,24 +767,14 @@ def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
     B, N, F = qkv.shape
     H = num_heads
     D = F // (3 * H)
-    if N > MAX_TOKENS or D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"K2 holds a head in shared memory and takes N <= {MAX_TOKENS}, "
-            f"D <= {MAX_HEAD_DIM} (got N={N}, D={D}); the split entry "
-            "(kernel K3) takes longer sequences")
-    lib = _library()
-    if lib.topk_attention_qkv_smem_bytes(N, D) == 0:
-        raise ValueError(f"K2 cannot take N={N}, D={D}")
+    lib = _qkv_lib("K2", N, N, D, kw)
     out = torch.empty(B, N, H * D, dtype=out_dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.topk_attention_qkv(
             qkv.data_ptr(), out.data_ptr(), B, N, H, D,
             int(qkv.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            int(k), float(scale), int(approx), int(key_bits),
-            int(contract == "serving"), int(bfloat == 16), int(flush),
-            int(ebits), int(mbits), int(emax), float(max_norm),
-            int(scale_bits), stream)
+            *_launch_args(kw), stream)
     if err:
         raise RuntimeError(f"K2 launch failed with CUDA error {err}")
     fused_topk_attention_qkv.launches += 1
@@ -847,24 +832,14 @@ def fused_topk_attention_qkv_t(qk_t: torch.Tensor, v: torch.Tensor,
     if k < 1 or not 1 <= n_valid <= N:
         raise ValueError(f"need k >= 1 and 1 <= n_valid <= N={N}, got k={k}, "
                          f"n_valid={n_valid}")
-    if N > MAX_TOKENS or D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"K7 holds a head in shared memory and takes N <= {MAX_TOKENS}, "
-            f"D <= {MAX_HEAD_DIM} (got N={N}, D={D}); the TPU kernel also "
-            "takes N up to 512, which the port does not yet (ROADMAP.md)")
-    lib = _library()
-    if lib.topk_attention_qkv_smem_bytes(N, D) == 0:
-        raise ValueError(f"K7 cannot take N={N}, D={D}")
+    lib = _qkv_lib("K7", N, n_valid, D, kw)
     out = torch.empty(B, N, H * D, dtype=out_dtype, device=qk_t.device)
     with torch.cuda.device(qk_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.topk_attention_qkv_t(
             qk_t.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, int(n_valid),
             H, D, Dp, int(qk_t.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), int(k), float(scale),
-            int(approx), int(key_bits), int(contract == "serving"),
-            int(bfloat == 16), int(flush), int(ebits), int(mbits), int(emax),
-            float(max_norm), int(scale_bits), stream)
+            int(out_dtype == torch.bfloat16), *_launch_args(kw), stream)
     if err:
         raise RuntimeError(f"K7 launch failed with CUDA error {err}")
     fused_topk_attention_qkv_t.launches += 1
@@ -955,13 +930,19 @@ def _split_operands(name, q, k_, v, bias, proj, kw):
             proj)
 
 
+def _pred_index(kw) -> int:
+    """The C interface's number of the call's predictor (its index in
+    SPLIT_PRED_MODES, which QKV_PRED_MODES shares; 0 without one)."""
+    return SPLIT_PRED_MODES.index(kw["pred_mode"]) if kw["approx"] else 0
+
+
 def _launch_args(kw):
-    """The trailing launch arguments K3 and K4 share, from the wrapper's
-    keywords: topk, scale, approx, pred_mode (its index in
-    SPLIT_PRED_MODES), key_bits, relaxed, bfloat16, flush, ebits, mbits,
-    emax, max_norm, scale_bits."""
+    """The trailing launch arguments K2, K3, K4 and K7 share, from the
+    wrapper's keywords: topk, scale, approx, pred_mode (``_pred_index``),
+    key_bits, relaxed, bfloat16, flush, ebits, mbits, emax, max_norm,
+    scale_bits."""
     return (int(kw["k"]), float(kw["scale"]), int(kw["approx"]),
-            SPLIT_PRED_MODES.index(kw["pred_mode"]),
+            _pred_index(kw),
             int(kw["key_bits"]), int(kw["contract"] == "serving"),
             int(kw["bfloat"] == 16), int(kw["flush"]), int(kw["ebits"]),
             int(kw["mbits"]), int(kw["emax"]), float(kw["max_norm"]),

@@ -1,31 +1,26 @@
 #!/usr/bin/env python3
 """Ladder of switched-off phases of kernel K2/K7's source
-(``csrc/topk_attention_qkv.cu``: the first design, with f32 CUDA-core
-products, or the int8 tensor-core redesign, told apart by their
-anchors), timed at K2's DiT-XL/2 256^2 sites.
+(``csrc/topk_attention_qkv.cu``, the design of this tree: int8 tensor-core
+products, the radix select, every predictor), timed at K2's sites of
+``time_split_sites.py`` (DiT-XL/2 256^2, DeiT).
 
-    git show <rev>:mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu \\
-        > _ab/k2_old.cu
-    python3 mx_quantization_tpu_torch/tools/qkv_ladder.py --source _ab/k2_old.cu
+    python3 mx_quantization_tpu_torch/tools/qkv_ladder.py \\
+        --source mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu
 
-The tool writes copies of ``--source`` into ``--out`` (default
-``_ab/ladder``, listed in ``.gitignore``) with guards at four or five points,
-builds each copy with ``-DLADDER_STOP=n`` (all ``nvcc`` started together)
-and times each at the K2 sites of ``time_split_sites.py`` through this
-tree's wrapper, with the library swapped.  A stop writes what it has to
-the output, so that nothing before it is dead code.  The first design:
-  1. staging only (MX quantize of q, k, v into shared memory);
-  2. + the true score (the scaled scores are the row's probabilities);
-  3. + the predictor (top-k calls: the monotone keys);
-  4. + selection (the selected scores);
-  5. + softmax and the probability requantize (the probabilities go to
-     the output instead of PV);
-  6. the whole kernel.
-The redesign: 1 staging; 2 + q's fragments, the predictor and selection;
-3 + the softmax's max and sum passes over the true scores; 4 + the
-probabilities (exact: their int8 grid points; serving: stored); 5 the
-whole kernel (+ PV).
-The copies are never built by the package's wrappers.
+The tool writes a copy of ``--source`` into ``--out`` (default
+``_ab/ladder``, listed in ``.gitignore``) with guards at four points,
+builds it once per stop with ``-DLADDER_STOP=n`` and ``-DQKV_PART=p`` (all
+``nvcc`` started together; ``--part``, default 0) and times each at the K2
+sites whose label holds ``--sites`` (default the DiT-256 sites, part 0's)
+through this tree's wrapper, with the library swapped.  A stop writes what
+it has to the output, so that nothing before it is dead code:
+  1. staging; 2. + q's fragments, the predictor and selection; 3. + the
+  softmax's max and sum passes over the true scores; 4. + the
+  probabilities (exact: their int8 grid points; serving: stored); 5. the
+  whole kernel (+ PV).
+Earlier designs (PERF.md's ladders of PRs 1-6) have another C interface:
+run the tool of their own tree (``git show <rev>:`` this file and the
+wrapper).  The copies are never built by the package's wrappers.
 """
 
 import argparse
@@ -40,61 +35,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-# (anchor, text inserted before it); each anchor must occur exactly once
-_OUT_ROW = """
-      for (int c = 0; c < kMaxDc; ++c) {
-        const int d = lane + 32 * c;
-        if (d < p.D) {
-          const size_t o = (size_t(b) * p.Nq + i) * p.H * p.D + size_t(h) * p.D + d;
-          if (p.out_bf16) static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(VAL);
-          else static_cast<float*>(p.out)[o] = VAL;
-        }
-      }"""
-PATCHES = (
-    ("  bool sel[kMaxNj];\n", """#if LADDER_STOP == 2
-#pragma unroll
-  for (int j = 0; j < kMaxNj; ++j) if (j < p.nj) prow[lane + 32 * j] = st[j];
-  return;
-#endif
-"""),
-    ("    // k-th largest key by bisection", """#if LADDER_STOP == 3
-#pragma unroll
-    for (int j = 0; j < kMaxNj; ++j) if (j < p.nj) prow[lane + 32 * j] = float(key[j]);
-    return;
-#endif
-"""),
-    ("  // masked softmax: unselected", """#if LADDER_STOP == 3 || LADDER_STOP == 4
-#pragma unroll
-  for (int j = 0; j < kMaxNj; ++j) if (j < p.nj) prow[lane + 32 * j] = sel[j] ? st[j] : 0.f;
-  return;
-#endif
-"""),
-    ("  // ---- each warp takes kRows query rows", """#if LADDER_STOP == 1
-  for (int i = warp; i < p.Nq; i += kWarps) {""" + _OUT_ROW.replace(
-        "VAL", "(__bfloat162float(qs[i * p.Dp + d]) + __bfloat162float("
-        "kT[d * p.kstr + i]) + __bfloat162float(vs[i * p.D + d]) + "
-        "qpw[i * p.nb] + float(ksgn[i * p.nb]))") + """
-  }
-  return;
-#endif
-"""),
-    ("    // PV: lanes own output columns", """#if LADDER_STOP >= 2 && LADDER_STOP <= 5
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i >= p.Nq) break;""" + _OUT_ROW.replace(
-        "VAL", "probs[(warp * kRows + r) * p.Np + lane + 32 * c]") + """
-    }
-    __syncwarp();
-    continue;
-#endif
-"""),
-)
-STOPS = {1: "staging", 2: "+ true score", 3: "+ predictor keys",
-         4: "+ selection", 5: "+ softmax and requantize", 6: "whole kernel"}
-
-# The redesign (int8 staging, tensor-core products, selection and
-# softmax on the mma accumulator layout): each stop writes one value per
-# row to the output and leaves the row tile
+# (anchor, text inserted before it); each anchor must occur exactly once.
+# Each stop writes one value per row to the output and leaves the row tile.
 _OUT_ROWS = """
     for (int r = 0; r < 2; ++r)
       if (row[r] < p.Nq && t < p.D) {
@@ -102,72 +44,77 @@ _OUT_ROWS = """
         if (p.out_bf16) static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(VAL);
         else static_cast<float*>(p.out)[o] = VAL;
       }"""
-NEW_PATCHES = (
-    ("  const short* qe = reinterpret_cast<const short*>(smem + L.qe);\n",
-     """#if LADDER_STOP == 1
+PATCHES = (
+    ("""    unsigned char* wa = smem + L.warp0 + size_t(warp) * L.warp_bytes;
+    for (int tile = warp; tile < p.ntq; tile += p.W) {""", """#if LADDER_STOP == 1
+    {
+      const int g = lane >> 2, t = lane & 3;
+      const int row[2] = {warp * 16 + g, warp * 16 + g + 8};
+      const float VAL1 = float((smem + L.k)[threadIdx.x]) + float((smem + L.v)[threadIdx.x]);"""
+     + _OUT_ROWS.replace("VAL", "VAL1") + """
+    }
+    return;
+#endif
+"""),
+    ("  // unselected entries are -3e38 and exp gives +0; the sum takes sixteen\n",
+     """#if LADDER_STOP == 2
   {
-    const int row[2] = {warp * 16 + g, warp * 16 + g + 8};
-    const float VAL0 = float((smem + L.k)[threadIdx.x]) + float((smem + L.v)[threadIdx.x]);"""
-     + _OUT_ROWS.replace("VAL", "VAL0") + """
+    const int row[2] = {rt.row[0], rt.row[1]};
+    const float VAL2 = float(__popcll(selm[0][0]) + __popcll(selm[1][0]) +
+                             __popcll(selm[0][kSelWords - 1]) + __popcll(selm[1][kSelWords - 1]));"""
+     + _OUT_ROWS.replace("VAL", "VAL2") + """
   }
   return;
 #endif
 """),
-    ("    // ---- masked softmax over the true scores", """#if LADDER_STOP == 2
-    {
-      const int row[2] = {rt.row[0], rt.row[1]};
-      const float VAL2 = float(__popcll(selm[0]) + __popcll(selm[1]));"""
-     + _OUT_ROWS.replace("VAL", "VAL2") + """
-    }
-    continue;
-#endif
-"""),
-    ("    // ---- by 32-key block: the probabilities", """#if LADDER_STOP == 3
-    {
-      const int row[2] = {rt.row[0], rt.row[1]};
-      const float VAL3 = sum[0] + sum[1] + mx[0] + mx[1];"""
+    ("  // ---- by 32-key block: the probabilities.", """#if LADDER_STOP == 3
+  {
+    const int row[2] = {rt.row[0], rt.row[1]};
+    const float VAL3 = sum[0] + sum[1] + mx[0] + mx[1];"""
      + _OUT_ROWS.replace("VAL", "VAL3") + """
-    }
-    continue;
+  }
+  return;
 #endif
 """),
-    ("      // PV: one mma per (8-column tile, 32-key block)", """#if LADDER_STOP == 4
-      {
-        const int row[2] = {rt.row[0], rt.row[1]};
-        const uint4 w4 = pgw[lane];
-        const float VAL4 = float(w4.x ^ w4.y ^ w4.z ^ w4.w) + pgs[lane].x;"""
-     + _OUT_ROWS.replace("VAL", "VAL4") + """
-      }
-      continue;
-#endif
-"""),
-    ("    __syncwarp();\n    // ---- PV on the CUDA cores", """#if LADDER_STOP == 4
-    __syncwarp();
+    ("    // PV: one mma per (8-column tile, 32-key block)", """#if LADDER_STOP == 4
     {
       const int row[2] = {rt.row[0], rt.row[1]};
-      const float VAL4 = __bfloat162float(pb[lane]) + __bfloat162float(pb[8 * p.Np + lane]);"""
+      const uint4 w4 = pgw[lane];
+      const float VAL4 = float(w4.x ^ w4.y ^ w4.z ^ w4.w) + pgs[lane].x;"""
      + _OUT_ROWS.replace("VAL", "VAL4") + """
     }
     __syncwarp();
-    continue;
+    return;
+#endif
+"""),
+    ("  __syncwarp();\n  // ---- PV on the CUDA cores", """#if LADDER_STOP == 4
+  __syncwarp();
+  {
+    const int row[2] = {rt.row[0], rt.row[1]};
+    const float VAL4 = __bfloat162float(pb[lane]) + __bfloat162float(pb[8 * p.Np + lane]);"""
+     + _OUT_ROWS.replace("VAL", "VAL4") + """
+  }
+  __syncwarp();
+  return;
 #endif
 """),
 )
-NEW_STOPS = {1: "staging", 2: "+ q fragments, predictor and selection",
-             3: "+ the softmax's max and sum passes",
-             4: "+ the probabilities (exact: their grid points; serving: "
-                "stored)",
-             5: "whole kernel (+ PV)"}
+STOPS = {1: "staging", 2: "+ q fragments, predictor and selection",
+         3: "+ the softmax's max and sum passes",
+         4: "+ the probabilities (exact: their grid points; serving: "
+            "stored)",
+         5: "whole kernel (+ PV)"}
 
 
 def patched(text):
-    """The source with the stops of its design inserted, and the stops."""
-    for patches, stops in ((PATCHES, STOPS), (NEW_PATCHES, NEW_STOPS)):
-        if all(text.count(anchor) == 1 for anchor, _ in patches):
-            for anchor, insert in patches:
-                text = text.replace(anchor, insert + anchor)
-            return text, stops
-    raise SystemExit("the source matches neither design's anchors")
+    """The source with the stops inserted, and the stops."""
+    for anchor, _ in PATCHES:
+        if text.count(anchor) != 1:
+            raise SystemExit(f"the source lacks the anchor {anchor[:60]!r} "
+                             "(an earlier design: run the tool of its tree)")
+    for anchor, insert in PATCHES:
+        text = text.replace(anchor, insert + anchor)
+    return text, STOPS
 
 
 def main():
@@ -177,6 +124,12 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--stops", default="",
                     help="comma-separated stops to build (default: all)")
+    ap.add_argument("--part", type=int, default=0,
+                    help="the build part (QKV_PART) whose kernels the copies "
+                         "hold (default 0: the packed-register selection's, "
+                         "DiT's sites)")
+    ap.add_argument("--sites", default="DiT-256",
+                    help="time the K2 sites whose label holds this")
     ap.add_argument("--build-only", action="store_true",
                     help="build the copies (all at once) and stop; a later "
                          "run with the same --out times them without "
@@ -204,7 +157,8 @@ def main():
             return lib
         cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC_DIR}",
                *build._define_flags(ta.K2_DEFINES),
-               f"-DLADDER_STOP={stop}", "-o", lib, src]
+               f"-DQKV_PART={args.part}", f"-DLADDER_STOP={stop}", "-o", lib,
+               src]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode:
             raise SystemExit(f"nvcc failed at stop {stop}:\n{res.stderr}")
@@ -223,9 +177,10 @@ def main():
     out = {}
     for stop, lib in libs.items():
         bound = ta.bind_qkv_library(ctypes.CDLL(lib))
-        ta._library = lambda bound=bound: bound
+        ta._qkv_library = lambda part, bound=bound: bound
         print(f"[ladder] stop {stop}: {stops[stop]}", flush=True)
-        out[stop] = tss.time_qkv_sites(ta, {"K2"}, dev, args.reps)
+        out[stop] = tss.time_qkv_sites(ta, {"K2"}, dev, args.reps,
+                                       args.sites)
     print(json.dumps({"device": smi, "stops": stops, "ms": out}))
     return 0
 

@@ -24,7 +24,13 @@ seeded generator (q and k scaled by 4, as ``chip_smoke.py`` times them):
   * K2 at DiT-XL/2 256^2's (qkv (64, 256, 3456) bf16, 16 heads of 72, bf16
     out, bfloat 16, key_bits 8): top-k ex_pred k = 154 and dense, each
     tier; K7 at the same sites from the split-emission operands (qk_t
-    (3072, 64, 256) with each head's rows past 72 zero, v (64, 256, 1152)).
+    (3072, 64, 256) with each head's rows past 72 zero, v (64, 256, 1152)),
+    and in two_step_leading_ones (the opt-ins path in that mode);
+  * K2 at DeiT's top-k sites (qkv (100, 197, 3 * 64 H) f32, f32 out,
+    key_bits 32, bfloat 0): DeiT-tiny ex_pred k = 80 (H = 3), DeiT-small
+    ex_pred k = 60 (H = 6), DeiT-base two_step k = 30 (H = 12), each tier.
+A site that a tree's kernel does not take (K2 or K7 in two_step before it
+served that mode) is reported as null.
 ``--kernels`` picks the kernels (default: all four).
 Prints the card's name and power limit, the ptxas lines of the build, one
 line per site, and last one JSON object with every time (ms per call,
@@ -32,6 +38,7 @@ CUDA events, calls queued behind a GPU sleep).
 """
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -47,16 +54,27 @@ DIT512 = dict(scale=72 ** -0.5, block_size=32, mbits=8, scale_bits=8,
 DIT256 = DIT512  # the same operating point at N = 256
 PIX1024 = dict(PIX, key_bits=8, out_dtype="bfloat16")
 REPS = 30  # timed calls per site (5 where a call takes over 20 ms)
-# K2 and K7: (kernel, label, qkv shape, heads, keywords)
+DEIT = dict(block_size=32, mbits=8, scale_bits=8, key_bits=32,
+            out_dtype="float32", bfloat=0, flush=False, ebits=0, emax=0,
+            max_norm=1.984375, scale=64 ** -0.5)
+# K2 and K7: (kernel, label, qkv shape, qkv dtype, heads, keywords)
 QKV_SITES = (
-    ("K2", "DiT-256 top-k ex_pred k=154", (64, 256, 3456), 16,
+    ("K2", "DiT-256 top-k ex_pred k=154", (64, 256, 3456), "bfloat16", 16,
      dict(DIT256, k=154, approx=True, pred_mode="ex_pred")),
-    ("K2", "DiT-256 dense", (64, 256, 3456), 16,
+    ("K2", "DiT-256 dense", (64, 256, 3456), "bfloat16", 16,
      dict(DIT256, k=256, approx=False, pred_mode="ex_pred")),
-    ("K7", "DiT-256 top-k ex_pred k=154", (64, 256, 3456), 16,
+    ("K7", "DiT-256 top-k ex_pred k=154", (64, 256, 3456), "bfloat16", 16,
      dict(DIT256, k=154, approx=True, pred_mode="ex_pred")),
-    ("K7", "DiT-256 dense", (64, 256, 3456), 16,
+    ("K7", "DiT-256 dense", (64, 256, 3456), "bfloat16", 16,
      dict(DIT256, k=256, approx=False, pred_mode="ex_pred")),
+    ("K7", "DiT-256 top-k two_step k=154", (64, 256, 3456), "bfloat16", 16,
+     dict(DIT256, k=154, approx=True, pred_mode="two_step_leading_ones")),
+    ("K2", "DeiT-tiny top-k ex_pred k=80", (100, 197, 576), "float32", 3,
+     dict(DEIT, k=80, approx=True, pred_mode="ex_pred")),
+    ("K2", "DeiT-small top-k ex_pred k=60", (100, 197, 1152), "float32", 6,
+     dict(DEIT, k=60, approx=True, pred_mode="ex_pred")),
+    ("K2", "DeiT-base top-k two_step k=30", (100, 197, 2304), "float32", 12,
+     dict(DEIT, k=30, approx=True, pred_mode="two_step_leading_ones")),
 )
 # (kernel, label, q shape, k shape, dtype, caption bias, keywords)
 SITES = (
@@ -120,17 +138,18 @@ def split_t_operands(qkv, heads, Dp):
     return qk_t.contiguous(), qkv[..., 2 * heads * D:].contiguous()
 
 
-def time_qkv_sites(ta, kernels, dev, reps=REPS):
-    """ms per call of K2 and K7 (those in ``kernels``) at QKV_SITES, each
-    tier, through the wrappers of the imported tree."""
+def time_qkv_sites(ta, kernels, dev, reps=REPS, match=""):
+    """ms per call of K2 and K7 (those in ``kernels``) at QKV_SITES whose
+    label holds ``match``, each tier, through the wrappers of the imported
+    tree."""
     import torch
     times = {}
-    for kernel, label, shape, heads, kw in QKV_SITES:
-        if kernel not in kernels:
+    for kernel, label, shape, dtype, heads, kw in QKV_SITES:
+        if kernel not in kernels or match not in label:
             continue
         gen = torch.Generator(device=dev).manual_seed(0)
         qkv = torch.randn(*shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+            getattr(torch, dtype))
         D = shape[2] // (3 * heads)
         qk_t, v = split_t_operands(qkv, heads, -(-D // 32) * 32)
         for contract in ("serving", "exact"):
@@ -143,7 +162,13 @@ def time_qkv_sites(ta, kernels, dev, reps=REPS):
                 def fn():
                     return ta.fused_topk_attention_qkv_t(
                         qk_t, v, heads, n_valid=shape[1], **call)
-            ms = time_ms(fn, reps)
+            try:
+                ms = time_ms(fn, reps)
+            except NotImplementedError as err:  # a mode the tree lacks
+                times[f"{kernel} {label} {contract}"] = None
+                print(f"[time] {kernel} {label} {contract}: not taken "
+                      f"({err})", flush=True)
+                continue
             times[f"{kernel} {label} {contract}"] = ms
             print(f"[time] {kernel} {label} {contract}: {ms:.4f} ms",
                   flush=True)
@@ -207,14 +232,18 @@ def main():
     if not os.path.abspath(ta.__file__).startswith(repo + os.sep):
         raise SystemExit(f"imported {ta.__file__}, not from {repo}")
     # trees from before K4 name the split source's definitions K3_DEFINES
-    libs = []
+    # and trees from before the parted K2 build have one K2 library
+    todo = []
     if chosen & {"K2", "K7"}:
-        libs.append(build.build(ta.SOURCE, ta.K2_DEFINES))
+        todo += (ta.qkv_builds() if hasattr(ta, "qkv_builds")
+                 else [(ta.SOURCE, ta.K2_DEFINES)])
     if chosen & {"K3", "K4"} and hasattr(ta, "split_builds"):
-        libs += [build.build(*sd) for sd in ta.split_builds()]
+        todo += ta.split_builds()
     elif chosen & {"K3", "K4"}:
-        libs.append(build.build(ta.SPLIT_SOURCE, getattr(
+        todo.append((ta.SPLIT_SOURCE, getattr(
             ta, "SPLIT_DEFINES", None) or ta.K3_DEFINES))
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(todo))) as pool:
+        libs = list(pool.map(lambda sd: build.build(*sd), todo))
     print(f"[build] {repo}: {[lib.name for lib in libs]}", flush=True)
     if args.build_only:
         return 0

@@ -173,11 +173,13 @@ def test_eligibility():
     specs = port_specs(SPECS)
     cfg = TopKAttentionConfig(k=8)
     assert fused_qkv_eligible(specs, cfg, 256)
-    assert not fused_qkv_eligible(specs, cfg, 257)
+    assert fused_qkv_eligible(specs, cfg, 512)
+    assert not fused_qkv_eligible(specs, cfg, 513)
     assert not fused_qkv_eligible(None, cfg, 64)
-    assert not fused_qkv_eligible(specs, cfg._replace(pred_mode="MXINT4"), 64)
+    assert fused_qkv_eligible(specs, cfg._replace(pred_mode="MXINT4"), 64)
+    assert not fused_qkv_eligible(specs, cfg._replace(pred_mode="ELSA"), 64)
     assert fused_qkv_eligible(
-        specs, cfg._replace(pred_mode="MXINT4", approx_flag=False), 64)
+        specs, cfg._replace(pred_mode="ELSA", approx_flag=False), 64)
     assert not fused_qkv_eligible(specs.replace(custom_tpu="ref"), cfg, 64)
 
 
@@ -191,5 +193,10 @@ def test_wrapper_uses_plain_only_on_cpu():
     with pytest.raises(ValueError):
         fused_topk_attention_qkv(torch.empty(1, 32, 384, device="meta"), 2,
                                  k=5, scale=0.125)
-    with pytest.raises(NotImplementedError):
-        fused_topk_attention_qkv(x, 2, k=5, scale=0.125, pred_mode="MXINT4")
+    with pytest.raises(NotImplementedError):  # ELSA is the split entry's
+        fused_topk_attention_qkv(x, 2, k=5, scale=0.125, pred_mode="ELSA")
+    assert torch.equal(
+        fused_topk_attention_qkv(x, 2, k=5, scale=0.125, pred_mode="MXINT4"),
+        fused_topk_attention_qkv_ref(x, 2, k=5, scale=0.125,
+                                     pred_mode="MXINT4"))
+    assert fused_topk_attention_qkv.launches == before

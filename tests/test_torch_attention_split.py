@@ -137,7 +137,7 @@ def test_wrapper_uses_plain_only_on_cpu_and_keeps_its_domain():
     with pytest.raises(ValueError):
         fused_topk_attention(meta, meta, meta, k=5, scale=0.125)
     # every predictor of the TPU kernels is K3's; ELSA needs its projection,
-    # at most MAX_ELSA_BITS rows of width D; K2 serves ex_pred alone
+    # at most MAX_ELSA_BITS rows of width D; K2 serves every one but ELSA
     with pytest.raises(ValueError, match="unknown pred_mode"):
         fused_topk_attention(q, k, v, k=5, scale=0.125, pred_mode="sanger")
     square = q[:, :, :40]
@@ -147,9 +147,9 @@ def test_wrapper_uses_plain_only_on_cpu_and_keeps_its_domain():
         fused_topk_attention(square, k, v, None, torch.zeros(MAX_ELSA_BITS + 1,
                                                              72),
                              k=5, scale=0.125, pred_mode="ELSA")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="split entry"):
         fused_topk_attention_qkv(torch.zeros(1, 32, 3 * 72), 1, k=5,
-                                 scale=0.125, pred_mode="MXINT4")
+                                 scale=0.125, pred_mode="ELSA")
 
 
 def _port_cfg(**kw):

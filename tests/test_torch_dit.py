@@ -50,7 +50,6 @@ from mx_quantization_tpu.attention import \
     TopKAttentionConfig as JaxAttnConfig
 from mx_quantization_tpu.attention import \
     fused_qkv_topk_attention as jax_qkv_attention
-from mx_quantization_tpu.attention import topk_attention as jax_topk
 from mx_quantization_tpu.models.common import patch_embed as jax_patch_embed
 from mx_quantization_tpu.models.dit import DiTConfig as JaxDiTConfig
 from mx_quantization_tpu.models.dit import DiTQuantConfig as JaxQuantConfig
@@ -76,7 +75,6 @@ from mx_quantization_tpu_torch.utils.checkpoint import (dit_params_from_jax,
                                                         load_dit_checkpoint)
 from mx_quantization_tpu_torch.workloads.dit import dit_mx_specs
 from test_torch_attention import assert_matches_jax
-from test_torch_attention_split import assert_split_matches_jax
 
 CFG_KW = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=288,
               depth=2, num_heads=4, num_classes=10)
@@ -343,12 +341,11 @@ def test_bf16_block_matches_jax(models, contract, block):
 
 
 def test_two_step_block_takes_the_split_entry(models, monkeypatch):
-    """pred_mode="two_step_leading_ones", which K2 does not serve: the
-    port's dit_attention routes to the split entry (kernel K3), as JAX
-    routes every config its qkv entry does not take.  The attention call is
-    held to JAX's split kernel on the port's q, k, v, and the block to JAX's
-    (which takes its own qkv kernel: the same arithmetic) as in
-    test_f32_block_matches_jax."""
+    """pred_mode="two_step_leading_ones": the port's dit_attention routes it
+    as JAX routes it, to the fused qkv entry (kernel K2; before K2 took
+    every predictor of JAX's qkv gate, the port sent it to the split entry,
+    kernel K3).  The attention call is held to JAX's qkv kernel on the
+    port's qkv, and the block to JAX's as in test_f32_block_matches_jax."""
     jcfg, jparams, model = models
     contract = "exact"  # the serving tier routes the same way
     qkw = {**QKW, "pred_mode": "two_step_leading_ones"}
@@ -371,16 +368,17 @@ def test_two_step_block_takes_the_split_entry(models, monkeypatch):
                          cfg=model.cfg, specs=pq.mx_specs,
                          act_dtype=torch.float32)
     monkeypatch.undo()
-    assert [c[0] for c in calls] == ["topk_attention"]
-    (q, k, v, scale, pspecs, pcfg), _ = calls[0][1:]
+    assert [c[0] for c in calls] == ["fused_qkv_topk_attention"]
+    (qkv, H, scale, pspecs, pcfg), _ = calls[0][1:]
     assert pcfg.pred_mode == "two_step_leading_ones" and pcfg.top_k
     jq = JaxQuantConfig(mx_specs=jax_specs(), contract=contract, **qkw)
-    assert_split_matches_jax(
-        lambda *a: port_dit.topk_attention(*map(torch.from_numpy, a[:3]),
-                                           scale, pspecs, pcfg)[0],
-        lambda *a: jax_topk(*map(jnp.asarray, a[:3]), scale, jq.mx_specs,
-                            JaxAttnConfig(**pcfg._asdict()))[0],
-        _np(q), _np(k), _np(v), None, contract=contract)
+    assert_matches_jax(
+        lambda a: port_dit.fused_qkv_topk_attention(
+            torch.from_numpy(a), H, scale, pspecs, pcfg).float(),
+        lambda a: jax_qkv_attention(
+            jnp.asarray(a), H, scale, jq.mx_specs,
+            JaxAttnConfig(**pcfg._asdict())).astype(jnp.float32),
+        _np(qkv), H, contract=contract)
     want = jax_block_step(unstack_block(jparams["blocks"], 0),
                           jq.block_attn_cfg(0, None), jnp.asarray(x),
                           jnp.asarray(cb), cfg=jcfg, specs=jq.mx_specs,

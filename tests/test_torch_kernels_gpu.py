@@ -27,7 +27,8 @@ from mx_quantization_tpu_torch.ops.kernels.ln_modulate_quantize import (
 from mx_quantization_tpu_torch.ops.kernels.quantize import (
     gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
-    MAX_TILED_KEYS, fused_topk_attention, fused_topk_attention_qkv,
+    MAX_TILED_KEYS, QKV_PRED_MODES, fused_topk_attention,
+    fused_topk_attention_qkv,
     fused_topk_attention_qkv_ref, fused_topk_attention_qkv_t,
     fused_topk_attention_qkv_t_ref, fused_topk_attention_ref,
     fused_topk_attention_tiled)
@@ -617,12 +618,89 @@ def test_k7_masks_keys_past_n_valid_and_counts_launches(cuda):
     got = fused_topk_attention_qkv_t(qk_t, v, H, **kw)
     assert fused_topk_attention_qkv_t.launches == before + 1
     assert torch.equal(got, fused_topk_attention_qkv_t_ref(qk_t, v, H, **kw))
-    long = torch.zeros(2 * H * 96, 1, 384, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_topk_attention_qkv_t(long, torch.zeros(1, 384, H * D,
+    long = torch.zeros(2 * H * 96, 1, 640, device=cuda)
+    with pytest.raises(NotImplementedError, match="512"):
+        fused_topk_attention_qkv_t(long, torch.zeros(1, 640, H * D,
                                                      device=cuda), H,
-                                   k=20, scale=0.1, n_valid=384)
+                                   k=20, scale=0.1, n_valid=640)
     assert fused_topk_attention_qkv_t.launches == before + 1
+
+
+def _k2_k7(qkv, H, kw, Dp=None):
+    """K2 and K7 on the same values, each against its plain version and
+    against each other."""
+    D = qkv.shape[2] // (3 * H)
+    qk_t, v = _split_t_operands(qkv, H, Dp or -(-D // 32) * 32)
+    got = fused_topk_attention_qkv(qkv, H, **kw)
+    want = fused_topk_attention_qkv_ref(qkv, H, **kw)
+    k7 = fused_topk_attention_qkv_t(qk_t, v, H, n_valid=qkv.shape[1], **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    assert torch.equal(k7, got)
+
+
+@pytest.mark.parametrize("mode", QKV_PRED_MODES)
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_k2_k7_modes_match_plain(cuda, mode, contract, in_dtype):
+    """Every predictor of the TPU kernels' qkv entries at the DiT site's N
+    and D (bf16: key_bits 8, bfloat 16; f32: key_bits 32, flush), top-k
+    and two rows."""
+    bf16 = in_dtype == torch.bfloat16
+    qkv = _normal((2, 256, 3 * 2 * 72), 47, in_dtype).to(cuda)
+    kw = dict(k=154, scale=72 ** -0.5, key_bits=8 if bf16 else 32,
+              bfloat=16 if bf16 else 0, flush=not bf16, pred_mode=mode,
+              contract=contract, out_dtype=in_dtype)
+    _k2_k7(qkv, 2, kw)
+
+
+@pytest.mark.parametrize("N", [300, 384, 512])
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("mode", QKV_PRED_MODES)
+def test_k2_k7_long_rows(cuda, N, fmt, mode):
+    """N past 256 up to the TPU entries' 512 (the radix select, the wider
+    selection masks; some calls in fewer warps or two phases), on the int
+    grid and an MXFP grid, key_bits 8 and 32, both tiers."""
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    qkv = _normal((1, N, 3 * 2 * 72), 48, torch.bfloat16).to(cuda)
+    for contract in ("exact", "serving"):
+        for kb in (8, 32):
+            kw = dict(k=N // 3, scale=72 ** -0.5, key_bits=kb, bfloat=16,
+                      ebits=ebits, mbits=mbits, emax=emax,
+                      max_norm=max_norm, pred_mode=mode, contract=contract,
+                      out_dtype=torch.bfloat16)
+            _k2_k7(qkv, 2, kw)
+
+
+@pytest.mark.parametrize("mode", QKV_PRED_MODES)
+@pytest.mark.parametrize("fmt", ["int4", "fp6_e3m2"])
+def test_k2_k7_modes_other_formats(cuda, mode, fmt):
+    """Each mode on the int4 grid and an fp6 grid, with subnormal blocks
+    under flush, D = 64 and 128, both tiers."""
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    for D in (64, 128):
+        qkv = _normal((1, 96, 3 * 2 * D), 49).to(cuda)
+        qkv[0, 5, 2 * D:2 * D + 32] = 1e-39  # a k block of head 0
+        qkv[0, 7, 32:64] = -2e-40            # a q block of head 0
+        for contract in ("exact", "serving"):
+            kw = dict(k=17, scale=D ** -0.5, key_bits=32, flush=True,
+                      ebits=ebits, mbits=mbits, emax=emax,
+                      max_norm=max_norm, pred_mode=mode, contract=contract)
+            _k2_k7(qkv, 2, kw)
+
+
+@pytest.mark.parametrize("contract", ["exact", "serving"])
+def test_k2_deit_base_two_step_site(cuda, contract):
+    """K2 at DeiT-base's qkv site in two_step (f32, 12 heads of 64, N =
+    197, k = 30, key_bits 32): the key cache of the radix select."""
+    x = _normal((2, 197, 3 * 12 * 64), 64).to(cuda)
+    kw = dict(k=30, scale=64 ** -0.5, key_bits=32,
+              pred_mode="two_step_leading_ones", contract=contract)
+    got = fused_topk_attention_qkv(x, 12, **kw)
+    want = fused_topk_attention_qkv_ref(x, 12, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
 def test_bf16_product_has_f32_output(cuda):
@@ -762,7 +840,7 @@ def test_deit_tiny_on_card_matches_plain_versions(cuda, plan, monkeypatch):
     with torch.inference_mode():
         got = vit_forward(model, x, qcfg)
     launches = [w.launches - b for w, b in zip(wrappers, before)]
-    per_fwd = {"ex_pred": [48, 0, 12, 0], "two_step": [48, 0, 1, 11],
+    per_fwd = {"ex_pred": [48, 0, 12, 0], "two_step": [48, 0, 12, 0],
                "fuse_gelu": [36, 12, 12, 0]}[mode]
     assert launches == per_fwd
     monkeypatch.setattr(kq, "mx_quantize", kq.mx_quantize_ref)

@@ -57,6 +57,7 @@ from mx_quantization_tpu.utils.prequantize import \
 from mx_quantization_tpu.workloads.dit import dit_mx_specs as jax_specs
 
 import mx_quantization_tpu_torch.models.dit as port_dit
+import mx_quantization_tpu_torch.ops.kernels.topk_attention as ta
 from mx_quantization_tpu_torch.models.dit import (DiTConfig, DiTQuantConfig,
                                                   dit_forward)
 from mx_quantization_tpu_torch.ops.kernels.quantize import mx_quantize_ref
@@ -181,10 +182,14 @@ def test_k7_refuses_what_the_port_does_not_serve():
     with pytest.raises(ValueError):  # neither a CPU nor a CUDA tensor
         fused_topk_attention_qkv_t(z, torch.zeros(1, 384, 144, device="meta"),
                                    2, k=20, scale=0.1, n_valid=384)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # ELSA is the split entry's
         fused_topk_attention_qkv_t_ref(
             torch.zeros(384, 1, 64), torch.zeros(1, 64, 144), 2, k=9,
-            scale=0.1, n_valid=64, pred_mode="two_step_leading_ones")
+            scale=0.1, n_valid=64, pred_mode="ELSA")
+    with pytest.raises(NotImplementedError):  # past the TPU entry's 512
+        ta._qkv_lib("K7", 640, 640, 72, dict(
+            k=20, approx=True, pred_mode="ex_pred", key_bits=8,
+            contract="exact", ebits=0))
 
 
 @pytest.mark.parametrize("prequantized", [False, True])

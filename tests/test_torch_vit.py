@@ -8,11 +8,12 @@ ELSA's structured projection takes), depth 3, 10 classes.  At the DeiT
 specs (MXINT8, bfloat 32, key_bits 32) the routing cases are:
   * ex_pred top-k: K2's plain version (blocks 0, 1) and the last block
     dense on K2 (the last-block rule);
-  * two_step top-k with block 1 excluded to ex_pred: K3's plain version
-    (block 0), K2 (block 1), K2 dense (block 2);
+  * two_step top-k with block 1 excluded to ex_pred: K2's plain version
+    in two_step (block 0), K2 (block 1), K2 dense (block 2), as JAX routes
+    them to its qkv kernel;
   * ex_pred top-k with block 0 excluded to two_step, which is also the
-    last block's type: K3 (block 0), K2 (block 1), K3 dense (block 2: the
-    last-block rule comes before ``exclude_blocks``);
+    last block's type: K2 in two_step (block 0), K2 (block 1), K2 dense
+    (block 2: the last-block rule comes before ``exclude_blocks``);
   * ELSA (serving tier): K3 with the structured projection, K2 dense last;
   * true top-k (``approx_flag=False``): K2 selects by the true scores;
   * unquantized (``mx_quant=False``).
@@ -101,11 +102,8 @@ CASES = {
 # the port's attention entries each case takes, by block
 ROUTES = {
     "ex_pred": ["fused_qkv_topk_attention"] * 3,
-    "two_step_exclude_ex_pred": ["topk_attention", "fused_qkv_topk_attention",
-                                 "fused_qkv_topk_attention"],
-    "exclude_two_step_last_block": ["topk_attention",
-                                    "fused_qkv_topk_attention",
-                                    "topk_attention"],
+    "two_step_exclude_ex_pred": ["fused_qkv_topk_attention"] * 3,
+    "exclude_two_step_last_block": ["fused_qkv_topk_attention"] * 3,
     "ELSA": ["topk_attention", "topk_attention", "fused_qkv_topk_attention"],
     "true_topk": ["fused_qkv_topk_attention"] * 3,
 }
@@ -169,33 +167,12 @@ def answer_jax(monkeypatch, pending):
         return jnp.asarray(_np(out)).astype(real.dtype)
 
     def qkv_attention(qkv, H, scale, specs, cfg):
-        """JAX's qkv entry.  Where JAX's qkv kernel takes a predictor the
-        port's K2 does not serve (two_step), the port took the split entry
-        (K3): its q, k, v are put back in the qkv layout and its split
-        call is held to JAX's qkv kernel."""
-        if pending and pending[0][0] == "topk_attention":
-            _, (q, k, v, _, pspecs, pcfg), _, (out, _) = take(
-                "topk_attention")
-            B, N = qkv.shape[:2]
+        """JAX's qkv entry, answered by the port's (K2) call."""
+        _, (qp, _, _, pspecs, pcfg), _, out = take("fused_qkv_topk_attention")
 
-            def port(a):
-                parts = torch.from_numpy(a).reshape(B, N, 3, H, -1).permute(
-                    2, 0, 3, 1, 4)
-                o = port_vit.topk_attention(
-                    *(t.contiguous() for t in parts), scale, pspecs,
-                    pcfg)[0]
-                return o.transpose(1, 2).reshape(B, N, -1)
-
-            qp = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(
-                B, N, -1)
-            out = out.transpose(1, 2).reshape(B, N, -1)
-        else:
-            _, (qp, _, _, pspecs, pcfg), _, out = take(
-                "fused_qkv_topk_attention")
-
-            def port(a):
-                return port_vit.fused_qkv_topk_attention(
-                    torch.from_numpy(a), H, scale, pspecs, pcfg)
+        def port(a):
+            return port_vit.fused_qkv_topk_attention(
+                torch.from_numpy(a), H, scale, pspecs, pcfg)
         _check(_np(qp), qkv)
         assert_matches_jax(
             lambda a: port(a).float(),
