@@ -41,6 +41,12 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      site, PixArt's fc2 site and in erf form, and at DeiT-base's fc2 site
      (erf, f32, bfloat 32), K7 at the DiT site in both tiers, top-k and
      dense, and K7 against K2 on the same values
+  6b. the emulation engine (custom_tpu="ref", plain torch, no kernel): its
+     quantizers on CUDA tensors over every key of tests/golden/
+     {elemwise,mx}.npz, under the goldens' rule and bit for bit the CPU's;
+     the ref linear against the fast one (K1) at the DiT and DeiT linear
+     sites, the largest difference printed, within 1e-6; and a serving
+     config off the kernels raising, as in JAX
   7. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
      prequantized to bf16), 32 images with CFG (64 rows), 100 DDPM steps,
      serving tier then exact tier; then the same with the fused opt-ins
@@ -59,10 +65,18 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      weights from a seed, prequantized), batches of 100 synthetic 224^2
      images through ``workloads/deit.py`` ``evaluate`` (K2 in every
      block, as in JAX), serving tier then exact, DeiT-small also serving
-     with ``fuse_gelu`` (K6), warmed, 10 batches timed
+     with ``fuse_gelu`` (K6), warmed, 10 batches timed.  The emulation
+     path (slice 11): DeiT-small and DeiT-base on the ref engine (weights
+     prequantized through its branch, exact tier) and DeiT-small with
+     sparse_impl="gather" on the fused engine, 2 batches each; block 0's
+     attention at DeiT-small on the ref engine against K2's exact tier;
+     DiT-XL/2 256^2 (64 rows, 2 DDPM steps) and PixArt-alpha 256^2 (16
+     rows, 2 DPM-Solver++ steps) on the ref engine, each step time and
+     peak device memory printed
      In 7 and 8 every launch count is set to 0 just before a run and read
      just after: each kernel of the path must have launched its per-forward
-     count times the steps (DeiT: batches), and no other kernel at all;
+     count times the steps (DeiT: batches), and no other kernel at all (on
+     the ref engine none, with "gather" K1 only);
      each kernel's launches per call site (shape, dtype, arguments) are
      kept
   9. two serving steps of each sampling path and one serving batch of
@@ -103,6 +117,8 @@ MODE_PROMPTS = 8
 DEIT_BATCH = 100  # tools/workload_probe.py deit_probe
 DEIT_BATCHES = 10
 DEIT_TOKENS = 197  # 14 x 14 patches and the cls token
+EMULATION_BATCHES = 2  # the ref engine's and "gather"'s DeiT runs
+EMULATION_STEPS = 2  # the ref engine's DiT and PixArt runs
 # (model, predictor, k): tools/workload_probe.py:127-131
 DEIT_POINTS = (("deit_tiny_patch16_224", "ex_pred", 80),
                ("deit_small_patch16_224", "ex_pred", 60),
@@ -260,6 +276,12 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    from mx_quantization_tpu_torch.attention import (TopKAttentionConfig,
+                                                      _topk_mask,
+                                                      fused_qkv_topk_attention,
+                                                      predict_scores,
+                                                      topk_attention)
     from mx_quantization_tpu_torch.formats import format_params
     from mx_quantization_tpu_torch.models.dit import (DiT_models,
                                                       DiTQuantConfig, init_dit)
@@ -268,7 +290,9 @@ def main():
                                                          init_pixart)
     from mx_quantization_tpu_torch.models.vit import (VIT_CONFIGS,
                                                       VitQuantConfig,
-                                                      init_vit, vit_forward)
+                                                      init_vit, layer_norm,
+                                                      vit_embed, vit_forward)
+    from mx_quantization_tpu_torch.ops.linear import linear
     from mx_quantization_tpu_torch.ops.kernels import build
     from mx_quantization_tpu_torch.ops.kernels import \
         ln_modulate_quantize as lnq
@@ -900,6 +924,63 @@ def main():
     del qkv, qk_t, v, got
 
     stamp("kernel checks done")
+    # ---- 6b. the emulation engine: its quantizers over every golden key on
+    # CUDA tensors (the goldens' rule, and the CPU's bits), no kernel
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from emulation_goldens import golden_cases, golden_mismatches, load
+    elem_npz, mx_npz = load()
+    n_keys = 0
+    for fam, _, key, x, call in golden_cases(elem_npz, mx_npz):
+        xt = torch.from_numpy(np.ascontiguousarray(x))
+        got = call(xt.to(dev)).cpu()
+        if golden_mismatches(got, (mx_npz if fam.startswith("mx")
+                                   else elem_npz)[key]):
+            fail(f"the emulation quantizer differs from the golden {key} "
+                 "on the card")
+        cpu = call(xt)
+        keep = ~cpu.isnan()
+        if not (torch.equal(got.isnan(), cpu.isnan()) and torch.equal(
+                got[keep].view(torch.int32), cpu[keep].view(torch.int32))):
+            fail(f"the emulation quantizer's bits differ between the card "
+                 f"and the CPU at {key}")
+        n_keys += 1
+    print(f"[emulation] {n_keys} golden keys of elemwise.npz and mx.npz: "
+          "equal on the card, bit for bit the CPU's", flush=True)
+
+    # the ref linear against the fast one (K1, the bf16 GEMM) at the DiT and
+    # DeiT linear sites, on the fly quantized f32 weights
+    for label, shape, out_f, dtype, specs_fn in (
+            ("DiT-XL/2 qkv", (2 * DIT_IMAGES, 256, 1152), 3456,
+             torch.bfloat16, dit_mx_specs),
+            ("DiT-XL/2 fc2", (2 * DIT_IMAGES, 256, 4608), 1152,
+             torch.bfloat16, dit_mx_specs),
+            ("DeiT-small qkv", (DEIT_BATCH, DEIT_TOKENS, 384), 1152,
+             torch.float32, default_mx_specs),
+            ("DeiT-base fc1", (DEIT_BATCH, DEIT_TOKENS, 768), 3072,
+             torch.float32, default_mx_specs)):
+        x = randn(*shape, scale=2.0, dtype=dtype)
+        w = randn(out_f, shape[-1], scale=shape[-1] ** -0.5)
+        b = randn(out_f, scale=0.1)
+        fused = linear(x, w, b, mx_specs=specs_fn())
+        ref = linear(x, w, b, mx_specs=specs_fn("ref"))
+        diff = (ref - fused).abs().max().item()
+        print(f"[emulation] linear ref against fused at {label} "
+              f"{tuple(shape)} {dtype}: max |diff| {diff:.3e} (bound 1e-6 "
+              "+ 1e-6 relative)", flush=True)
+        if not torch.allclose(ref, fused, rtol=1e-6, atol=1e-6):
+            fail(f"the ref linear differs from the fused one at {label}")
+    del x, w, b, fused, ref
+    # the serving tier is a kernel tier: off the kernels it raises, as in
+    # JAX, and never falls back to the XLA path
+    qx = randn(2, 2, 64, 64)
+    try:
+        topk_attention(qx, qx, qx, 0.125, dit_mx_specs(), TopKAttentionConfig(
+            k=8, sparse_impl="gather", contract="serving"))
+        fail("a serving config off the kernels ran on the XLA path")
+    except ValueError:
+        pass
+    stamp("emulation checks done")
     # ---- 6./7. the slices
     main_launches = {n: 0 for n in wrappers}
     main_sites = {n: collections.Counter() for n in wrappers}
@@ -1103,6 +1184,23 @@ def main():
         model, qc, labels512, gen, num_steps=2, device=dev), 2)
     del model
 
+    # 7. DiT-XL/2 256^2 on the emulation engine (dit_mx_specs("ref"), the
+    # JAX CLI's --engine ref: f32 activations, weights quantized on the
+    # fly), 32 images with CFG, exact tier: no kernel may launch
+    model = init_dit(cfg, torch.Generator().manual_seed(0), dev,
+                     randomize_all=True)
+    qc = DiTQuantConfig(mx_specs=dit_mx_specs("ref"), mx_quant=True,
+                        top_k=True, k=154, ex_pred=True,
+                        exclude_blocks=(27,))
+    lat = run_path("DiT-XL/2 ref", "exact", EMULATION_STEPS, {}, DIT_IMAGES,
+                   lambda: sample_dit(model, qc, labels, gen,
+                                      num_steps=EMULATION_STEPS, device=dev))
+    if lat.shape != (DIT_IMAGES, 4, 32, 32) or not torch.isfinite(lat).all():
+        fail("DiT ref: latents not finite / wrong shape")
+    print(f"[slice] DiT-XL/2 ref exact: latent std "
+          f"{lat.float().std().item():.4g}", flush=True)
+    del model
+
     # 8. PixArt-alpha 256^2
     pcfg = PixArtConfig()  # 256^2: latent 32, 28 layers, 16 heads of 72
     t0 = time.perf_counter()
@@ -1157,6 +1255,19 @@ def main():
                     not torch.isfinite(lat).all():
                 fail(f"PixArt {mode} {contract}: latents not finite / wrong "
                      "shape")
+
+    # 8. PixArt-alpha 256^2 on the emulation engine (pixart_mx_specs("ref")),
+    # 8 prompts with CFG (16 rows), exact tier: no kernel may launch
+    qc = dataclasses.replace(pix_q, mx_specs=pixart_mx_specs("ref"))
+    lat = run_path("PixArt-alpha-256 ref", "exact", EMULATION_STEPS, {},
+                   MODE_PROMPTS, lambda: sample_pixart(
+                       pmodel, qc, embeds[:MODE_PROMPTS], mask[:MODE_PROMPTS],
+                       null, num_steps=EMULATION_STEPS,
+                       latents=noise[:MODE_PROMPTS], device=dev))
+    if lat.shape != (MODE_PROMPTS, 4, 32, 32) or not torch.isfinite(lat).all():
+        fail("PixArt ref: latents not finite / wrong shape")
+    print(f"[slice] PixArt-alpha-256 ref exact: latent std "
+          f"{lat.float().std().item():.4g}", flush=True)
     del pmodel, embeds, null
 
     # 8. PixArt-alpha 1024^2 (tools/workload_probe.py pixart1024_probe):
@@ -1212,6 +1323,91 @@ def main():
     images = [randn(DEIT_BATCH, 3, 224, 224) for _ in range(DEIT_BATCHES)]
     batches = [(x, torch.randint(0, 1000, (DEIT_BATCH,), generator=gen,
                                  device=dev)) for x in images]
+
+    def deit_emulation(name, vcfg, vmodel, vspecs, pred, k):
+        """The emulation path at DeiT-small and -base: the ref engine
+        (weights prequantized through its branch, which at DeiT's specs
+        gives the fast branch's grid points), no kernel; at DeiT-small also
+        sparse_impl="gather" on the fused engine (K1 in front of the four
+        linears and of the true score product's q in every block, no K2)
+        and block 0's attention on the ref engine against K2's exact tier."""
+        depth, short = vcfg.depth, name.split("_patch")[0]
+        rmodel = init_vit(vcfg, torch.Generator().manual_seed(0), dev)
+        rmodel, rspecs = prequantize_weights(rmodel, default_mx_specs("ref"))
+        for (pname, pr), (_, pf) in zip(rmodel.named_parameters(),
+                                        vmodel.named_parameters()):
+            if not torch.equal(pr, pf):
+                fail(f"{short}: the ref and fused prequantize differ at "
+                     f"{pname}")
+        exact = VitQuantConfig(mx_specs=vspecs, mx_quant=True, top_k=True,
+                               k=k, pred_mode=pred, contract="exact")
+        qr = dataclasses.replace(exact, mx_specs=rspecs)
+        with torch.inference_mode():  # warm, and the same batch both ways
+            lf = vit_forward(vmodel, images[0], exact)
+            lr = vit_forward(rmodel, images[0], qr)
+        if lr.shape != (DEIT_BATCH, 1000) or not torch.isfinite(lr).all():
+            fail(f"{short} ref: logits not finite / wrong shape")
+        top1 = (lr.argmax(-1) == lf.argmax(-1)).float().mean().item()
+        print(f"[emulation] {short} logits, ref against fused exact on one "
+              f"batch: max |diff| {(lr - lf).abs().max().item():.4e} (logit "
+              f"std {lf.std().item():.4g}), top-1 agreement {top1:.4f}",
+              flush=True)
+        n = DEIT_BATCH * EMULATION_BATCHES
+        stats = run_path(f"{short} {pred} k={k} ref", "exact",
+                         EMULATION_BATCHES, {}, n,
+                         lambda: evaluate(rmodel, qr,
+                                          batches[:EMULATION_BATCHES],
+                                          log_every=0, device=dev))
+        if stats["n"] != n:
+            fail(f"{short} ref: evaluated {stats['n']} images")
+        del rmodel
+        if name != "deit_small_patch16_224":
+            return
+        qg = dataclasses.replace(exact, sparse_impl="gather")
+        with torch.inference_mode():  # warm
+            lg = vit_forward(vmodel, images[0], qg)
+        if lg.shape != (DEIT_BATCH, 1000) or not torch.isfinite(lg).all():
+            fail(f"{short} gather: logits not finite / wrong shape")
+        stats = run_path(f"{short} {pred} k={k} gather", "exact",
+                         EMULATION_BATCHES, {K1: 5 * depth}, n,
+                         lambda: evaluate(vmodel, qg,
+                                          batches[:EMULATION_BATCHES],
+                                          log_every=0, device=dev))
+        if stats["n"] != n:
+            fail(f"{short} gather: evaluated {stats['n']} images")
+        # block 0's attention inputs of one batch: the ref engine's
+        # topk_attention against K2's exact tier on the same q, k, v, held
+        # on the query rows whose top-k selections agree (K2's selection is
+        # the fused engine's masked selection of its predictor scores)
+        H, D = vcfg.num_heads, vcfg.head_dim
+        with torch.inference_mode():
+            blk = vmodel.blocks[0]
+            h = layer_norm(vit_embed(vmodel, images[0]), blk.norm1, vcfg.eps)
+            qkv = linear(h, blk.attn.qkv.weight, blk.attn.qkv.bias,
+                         mx_specs=vspecs)
+            B, N, _ = qkv.shape
+            q, kx, v = (t.contiguous() for t in qkv.reshape(
+                B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+            acfg = TopKAttentionConfig(k=k, pred_mode=pred, contract="exact")
+            out_ref, idx = topk_attention(q, kx, v, D ** -0.5, rspecs, acfg)
+            out_k2 = fused_qkv_topk_attention(qkv, H, D ** -0.5, vspecs,
+                                              acfg).reshape(
+                B, N, H, D).permute(0, 2, 1, 3)
+            sel_ref = torch.zeros(B, H, N, N, dtype=torch.bool,
+                                  device=dev).scatter(-1, idx, True)
+            sel_k2 = _topk_mask(predict_scores(q, kx, vspecs, pred), k)
+            same = (sel_ref == sel_k2).all(-1)
+            close = torch.isclose(out_ref, out_k2, rtol=2e-4,
+                                  atol=2e-5).all(-1)
+            share = close[same].float().mean().item()
+        print(f"[emulation] {short} block 0 attention, ref against K2 exact: "
+              f"{same.float().mean().item():.4f} of query rows select the "
+              f"same keys; {share:.4f} of those within 2e-4 / 2e-5 "
+              f"(bound 0.99); max |diff| on them "
+              f"{(out_ref - out_k2).abs().amax(-1)[same].max().item():.3e}",
+              flush=True)
+        if share < 0.99:
+            fail(f"{short}: the ref engine's attention differs from K2's")
     for name, pred, k in DEIT_POINTS:
         t0 = time.perf_counter()
         vcfg = VIT_CONFIGS[name]
@@ -1250,6 +1446,7 @@ def main():
                                 k=k, pred_mode=pred, contract="serving")
             profile(f"{short} (one batch)", lambda: evaluate(
                 vmodel, qc, batches[:1], log_every=0, device=dev), 1)
+            deit_emulation(name, vcfg, vmodel, vspecs, pred, k)
         del vmodel
     del images, batches
 

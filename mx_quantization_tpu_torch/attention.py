@@ -6,15 +6,24 @@ The flow is the reference's
   true_scores = MX(q) @ MX(k)^T * scale (+ bias),
   pred = approx(q) @ approx(k)^T (+ bias),
   attn = softmax over the top-k of pred,  out = MX(attn) @ MX(v),
-all inside one kernel: K2 (``fused_qkv_topk_attention``, self-attention from
-the fused qkv output, N <= 512) or K3 / K4 (``topk_attention``, split q/k/v
-with an optional key bias; K4 where N or S exceeds 512), all in
-``ops/kernels/topk_attention.py``.  Each takes every predictor of the JAX
-kernel it replaces: K2 (and K7, DiT's split-emission entry) every one but
-ELSA, K3 and K4 ELSA too, with the structured orthogonal projection
-(``predictors/elsa.py``) unless the caller passes its own.  Where the JAX
-package would leave its kernels for the XLA emulation path, the port
-raises: the emulation engine is not ported yet (ROADMAP.md).
+inside one kernel where JAX takes its Pallas kernels: K2
+(``fused_qkv_topk_attention``, self-attention from the fused qkv output,
+N <= 512) or K3 / K4 (``topk_attention``, split q/k/v with an optional key
+bias; K4 where N or S exceeds 512), all in ``ops/kernels/topk_attention.py``.
+Each takes every predictor of the JAX kernel it replaces: K2 (and K7, DiT's
+split-emission entry) every one but ELSA, K3 and K4 ELSA too, with the
+structured orthogonal projection (``predictors/elsa.py``) unless the caller
+passes its own.
+
+Everywhere else the XLA path runs, in plain torch as in JAX: the emulation
+engine (``custom_tpu="ref"``), and the fused engine's fallbacks
+(``sparse_impl="gather"``, S > 4096, fp != 0, another bias shape, a
+non-kernel format, non-square ELSA).  The ref engine selects by
+``jax.lax.top_k``'s order and scatters (``_sparse_softmax_scatter``); the
+fused fallback masks with an exact k-th value (``_sparse_softmax_threshold``);
+"gather" multiplies the selected V rows only.  The serving contract is a
+kernel tier: where a config leaves the kernels it raises ``ValueError``, as
+JAX does.
 """
 
 from __future__ import annotations
@@ -24,11 +33,17 @@ from typing import NamedTuple, Optional
 import torch
 
 from .formats import format_params
+from .ops.elemwise import quantize_elemwise_op
 from .ops.fastquant import fused_eligible
 from .ops.kernels.topk_attention import (MAX_TILED_KEYS, MAX_TOKENS,
                                          QKV_PRED_MODES, fused_topk_attention,
                                          fused_topk_attention_qkv)
+from .ops.linear import f32_matmul, matmul
+from .ops.mx import quantize_mx_op
+from .ops.selection import kth_largest, top_k_indices
+from .predictors.elsa import ElsaApproximation
 from .predictors.elsa import orthogonal_matrix as _structured_matrix
+from .predictors.exponent import exponent_predict
 
 
 class TopKAttentionConfig(NamedTuple):
@@ -140,18 +155,102 @@ def _split_kernel(q, k, v, bias, scale, mx_specs, cfg,
         **_kernel_elemwise_args(mx_specs), **_kernel_format_args(mx_specs))
 
 
-def _emulation_path(cfg: TopKAttentionConfig, why: str):
-    if cfg.contract == "serving":
-        raise ValueError(f"contract='serving' is a fused-kernel tier; this "
-                         f"config falls back to the XLA path ({why})")
-    raise NotImplementedError(
-        f"this attention config needs the emulation path ({why}), which is "
-        "not ported yet (ROADMAP.md)")
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis, in its order of operations."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
 
 
-def _matmul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Full-precision f32 product (TF32 must be off, as it is by default)."""
-    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+def predict_scores(q, k, mx_specs, pred_mode: str, orthogonal_matrix=None):
+    """Approximated Q.K^T scores for the top-k selection.  The predictor
+    operands are signs times powers of two (exact in bf16): the fused
+    engine multiplies them as bf16 with f32 accumulation, the ref engine
+    in full f32, as JAX does."""
+    if pred_mode == "ELSA":
+        return ElsaApproximation(q, k, mx_specs,
+                                 orthogonal_matrix).approximation_scores()
+    aq, ak = exponent_predict(q, k, mx_specs, pred_mode)
+    if mx_specs.custom_tpu == "fused":
+        aq, ak = aq.to(torch.bfloat16), ak.to(torch.bfloat16)
+    return f32_matmul(aq, ak.transpose(-1, -2))
+
+
+def _sparse_softmax_scatter(true_scores, idx):
+    """Softmax over the gathered top-k values, scattered back dense
+    (reference main.py:147-148)."""
+    p = _softmax(torch.gather(true_scores, -1, idx))
+    return torch.zeros_like(true_scores).scatter(-1, idx, p)
+
+
+def _topk_mask(scores, k: int):
+    """Boolean mask of each row's top-k entries with ``jax.lax.top_k``'s
+    tie order (lowest index first), without a sort: the k-th value by the
+    bit-space bisection (``ops/selection.py``), ties at it ranked by a
+    cumulative count."""
+    kth = kth_largest(scores, k)[..., None]
+    gt = scores > kth
+    n_gt = gt.sum(-1, keepdim=True, dtype=torch.int32)
+    eq = scores == kth
+    eq_rank = torch.cumsum(eq.to(torch.int32), dim=-1)
+    return gt | (eq & (eq_rank <= k - n_gt))
+
+
+def _sparse_softmax_threshold(true_scores, pred_scores, k: int):
+    """Dense top-k-masked softmax: the entries top_k(pred) + gather +
+    scatter select, with elementwise ops only (JAX's fused fallback)."""
+    sel = _topk_mask(pred_scores, k)
+    neg = torch.finfo(true_scores.dtype).min
+    masked = torch.where(sel, true_scores, neg)
+    m = masked.amax(-1, keepdim=True)
+    e = torch.where(sel, torch.exp(true_scores - m), 0.0)
+    return e / e.sum(-1, keepdim=True)
+
+
+def _true_scores(q, k, scale, mx_specs, bias):
+    s = matmul(q, k.transpose(-1, -2), mx_specs=mx_specs,
+               mode_config="aa") * scale
+    return s if bias is None else s + bias
+
+
+def _selector(q, k, true_scores, mx_specs, cfg, bias, orthogonal_matrix):
+    """The scores the top-k ranks: the predictor's (plus the bias), or the
+    true scores without approx_flag."""
+    if not cfg.approx_flag:
+        return true_scores
+    pred = predict_scores(q, k, mx_specs, cfg.pred_mode, orthogonal_matrix)
+    return pred if bias is None else pred + bias
+
+
+def _xla_topk_dense(q, k, v, scale, mx_specs, cfg, bias=None,
+                    orthogonal_matrix=None):
+    """The XLA path's equivalent of the kernels (dense sparse_impl, the
+    threshold mask): JAX's differentiation surrogate of its kernel."""
+    true_scores = _true_scores(q, k, scale, mx_specs, bias)
+    selector = _selector(q, k, true_scores, mx_specs, cfg, bias,
+                         orthogonal_matrix)
+    attn = _sparse_softmax_threshold(true_scores, selector, cfg.k)
+    return matmul(attn, v, mx_specs=mx_specs, mode_config="aa")
+
+
+def _gathered_sparse_attention(true_scores, idx, v, mx_specs):
+    """O(N*k*D) sparse attention: the V rows at the selected indices.  The
+    gathered probabilities are MX-quantized per row (one block grouping
+    over the k values, within MX rounding of the dense layout), V along
+    the key axis; the product takes bf16 operands with f32 accumulation."""
+    p = _softmax(torch.gather(true_scores, -1, idx))
+    p = quantize_elemwise_op(p, mx_specs, round=mx_specs.round_output)
+    p = quantize_mx_op(p, mx_specs, elem_format=mx_specs.a_elem_format,
+                       axes=[-1], round=mx_specs.round_mx_output)
+    bf_v = quantize_elemwise_op(v, mx_specs, round=mx_specs.round_output)
+    qv = quantize_mx_op(bf_v, mx_specs, elem_format=mx_specs.a_elem_format,
+                        axes=[-2], round=mx_specs.round_mx_output)
+    *lead, n, kk = idx.shape
+    d = qv.shape[-1]
+    vg = torch.gather(qv.unsqueeze(-3).expand(*lead, n, qv.shape[-2], d),
+                      -2, idx.unsqueeze(-1).expand(*lead, n, kk, d))
+    out = f32_matmul(p.to(torch.bfloat16).unsqueeze(-2),
+                     vg.to(torch.bfloat16)).squeeze(-2)
+    return quantize_elemwise_op(out, mx_specs, round=mx_specs.round_output)
 
 
 def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,14 +262,15 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     both the true and the predicted scores (the PixArt cross-attention
     contract).  ``orthogonal_matrix`` is ELSA's (bits, D) projection;
     without one, ELSA takes ``create_structured_orthogonal_matrix(D)``.
-    Returns (out, None), as the JAX package's kernel path does."""
+    Returns (out, idx): the selected indices (..., N, k) where JAX returns
+    them (the ref engine's top-k and "gather"), else None."""
     if not cfg.mx_quant or mx_specs is None:
         dt = torch.promote_types(q.dtype, k.dtype)
-        s = _matmul32(q, k.transpose(-1, -2)).to(dt) * scale
+        s = f32_matmul(q, k.transpose(-1, -2)).to(dt) * scale
         if bias is not None:
             s = s + bias
         p = torch.softmax(s.to(torch.float32), dim=-1).to(s.dtype)
-        return _matmul32(p, v).to(torch.promote_types(p.dtype, v.dtype)), None
+        return f32_matmul(p, v).to(torch.promote_types(p.dtype, v.dtype)), None
 
     S = int(k.shape[-2])
     bias_ok = _bias_ok(bias, q, S)
@@ -181,8 +281,13 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 and S <= MAX_TILED_KEYS):
             dcfg = cfg._replace(top_k=True, approx_flag=False, k=S)
             return _split_kernel(q, k, v, bias, scale, mx_specs, dcfg), None
-        _emulation_path(cfg, "unsupported bias shape, fp != 0, S > 4096, or "
-                        "a non-kernel element format")
+        if cfg.contract == "serving":
+            raise ValueError(
+                "contract='serving' is a fused-kernel tier; this dense "
+                "config falls back to the XLA path (unsupported bias shape, "
+                "fp != 0, S > 4096, or a non-kernel element format)")
+        attn = _softmax(_true_scores(q, k, scale, mx_specs, bias))
+        return matmul(attn, v, mx_specs=mx_specs, mode_config="aa"), None
 
     # ELSA runs in the kernels for square attention only: the reference
     # takes the key norms at the QUERY index (JAX ``elsa_kernel_ok``)
@@ -196,5 +301,29 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             proj = (orthogonal_matrix if orthogonal_matrix is not None else
                     _structured_matrix(int(q.shape[-1]), q.device))
         return _split_kernel(q, k, v, bias, scale, mx_specs, cfg, proj), None
-    _emulation_path(cfg, "sparse_impl, bias shape, fp != 0, S > 4096, "
-                    "element format, or a non-kernel predictor")
+    if cfg.contract == "serving":
+        raise ValueError(
+            "contract='serving' is a fused-kernel tier; this config falls "
+            "back to the XLA path (sparse_impl, bias shape, fp != 0, "
+            "S > 4096, element format, or a non-kernel predictor)")
+
+    # the XLA path (JAX computes the true scores and the selector before
+    # its kernel test; under jit the kernel path drops them)
+    true_scores = _true_scores(q, k, scale, mx_specs, bias)
+    selector = _selector(q, k, true_scores, mx_specs, cfg, bias,
+                         orthogonal_matrix)
+    if cfg.sparse_impl == "dense":
+        if mx_specs.custom_tpu == "fused":
+            # the scatter-free masked softmax (the same selection)
+            attn = _sparse_softmax_threshold(true_scores, selector, cfg.k)
+            idx = None
+        else:
+            idx = top_k_indices(selector, cfg.k)
+            attn = _sparse_softmax_scatter(true_scores, idx)
+        out = matmul(attn, v, mx_specs=mx_specs, mode_config="aa")
+    elif cfg.sparse_impl == "gather":
+        idx = top_k_indices(selector, cfg.k)
+        out = _gathered_sparse_attention(true_scores, idx, v, mx_specs)
+    else:
+        raise ValueError(f"Unknown sparse_impl {cfg.sparse_impl!r}")
+    return out, idx

@@ -21,6 +21,8 @@ from __future__ import annotations
 import enum
 from typing import NamedTuple, Union
 
+FP32_EXPONENT_BIAS = 127
+
 
 class ElemFormat(enum.Enum):
     int8 = 1
@@ -58,6 +60,22 @@ class FormatParams(NamedTuple):
     min_norm: float
 
 
+def _min_norm(ebits: int) -> float:
+    """Smallest normal for a float format; 0 for ints (ebits == 0)."""
+    if ebits == 0:
+        return 0.0
+    emin = 2 - (2 ** (ebits - 1))
+    return 2.0 ** emin
+
+
+def _max_norm(ebits: int, mbits: int) -> float:
+    """Largest normal for float formats that reserve the top exponent for
+    NaN/Inf (the bfloatX and fpX elementwise grids)."""
+    assert ebits >= 5, "only valid for formats that define NaN/Inf"
+    emax = 0 if ebits == 0 else 2 ** (ebits - 1) - 1
+    return 2 ** emax * float(2 ** (mbits - 1) - 1) / 2 ** (mbits - 2)
+
+
 # (ebits, mbits, emax) per format; max_norm/min_norm derived below.
 _FORMAT_TABLE = {
     ElemFormat.int8: (0, 8, 0),
@@ -84,5 +102,5 @@ def format_params(fmt: FormatLike) -> FormatParams:
         max_norm = 2 ** emax * 1.75  # e4m3 has no Inf: extended max normal
     else:
         max_norm = 2 ** emax * float(2 ** (mbits - 1) - 1) / 2 ** (mbits - 2)
-    min_norm = 0.0 if ebits == 0 else 2.0 ** (2 - 2 ** (ebits - 1))
+    min_norm = _min_norm(ebits)
     return FormatParams(ebits, mbits, emax, max_norm, min_norm)

@@ -272,9 +272,10 @@ def pixart_block_apply(blk: PixArtBlock, x: torch.Tensor, ctx: torch.Tensor,
     x = x + gate_msa * _mha(blk.attn1, h, h, cfg, specs, self_cfg,
                             orthogonal_matrix=orthogonal_matrix
                             ).to(act_dtype)
-    # PixArt: no norm before the cross-attention
-    x = x + _mha(blk.attn2, x, ctx, cfg, specs, cross_cfg, bias=bias,
-                 orthogonal_matrix=orthogonal_matrix).to(act_dtype)
+    # PixArt: no norm before the cross-attention; ELSA there takes its
+    # default projection, as in JAX (non-square ELSA raises in both)
+    x = x + _mha(blk.attn2, x, ctx, cfg, specs, cross_cfg,
+                 bias=bias).to(act_dtype)
     h = _ln(x, cfg.norm_eps) * (1 + scale_mlp) + shift_mlp
     h = linear(h, blk.ff.fc1.weight, blk.ff.fc1.bias,
                mx_specs=mxs).to(act_dtype)

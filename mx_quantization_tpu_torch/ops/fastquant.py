@@ -6,9 +6,10 @@ and rounding is half away from zero (``sign * floor(|s| + 0.5)``), so the
 values match the JAX fast path bit for bit on normal-range inputs.
 
 ``quantize_mx_serving`` is the activation quantize in front of every
-quantized linear: on a CUDA tensor it launches kernel K1
-(``kernels/quantize.py``) or raises; only a CPU tensor takes the plain
-torch path.  ``gelu_quantize_serving`` is the serving tier's fused GELU and
+quantized linear: along a last axis of whole blocks it launches kernel K1
+(``kernels/quantize.py``) on a CUDA tensor, and only a CPU tensor takes
+K1's plain version; a non-last or ragged axis takes the plain torch chain
+on any device, where JAX takes XLA ops.  ``gelu_quantize_serving`` is the serving tier's fused GELU and
 fc2-input quantize (kernel K6), under the same rule.
 """
 
@@ -187,17 +188,13 @@ def quantize_mx_serving(x: torch.Tensor, elem_format: str, block_size: int,
     """Activation MX quantize with the bfloat round fused in.
 
     Last axis and whole blocks: kernel K1 on a CUDA tensor, its plain
-    version on a CPU tensor.  Anything else runs the plain torch chain on
-    the CPU and raises on the card (no kernel serves it yet)."""
+    version on a CPU tensor.  A non-last or ragged axis takes the plain
+    torch chain on any device, as JAX takes its XLA ops there."""
     axis = axis % x.ndim
     if axis == x.ndim - 1 and x.shape[axis] % block_size == 0:
         from .kernels.quantize import mx_quantize
         return mx_quantize(x, elem_format, block_size, scale_bits,
                            out_dtype=out_dtype, flush=flush, bfloat=bfloat)
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "no kernel quantizes along a non-last or ragged axis on the card "
-            f"(axis={axis}, shape={tuple(x.shape)}, block={block_size})")
     if bfloat == 16 and x.dtype != torch.bfloat16:
         x = bf16_round_half_away(x)
     return quantize_mx_fast(x, elem_format, block_size, scale_bits,

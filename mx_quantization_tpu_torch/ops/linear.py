@@ -1,21 +1,36 @@
-"""MX-quantized linear, forward only (port of the JAX package's
-``ops/linear.py`` ``linear`` and ``_linear_fwd_fast``).
+"""MX-quantized linear, matmul and bmm, forward only (port of the JAX
+package's ``ops/linear.py``).
 
-The quantized product takes bf16 operands (every MX grid point of the
-served formats is exact in bf16) and must give the exact f32 product: the
-half-away ``bf_fast`` round is applied to the f32 result afterwards.  A bf16
-GEMM that writes bf16 would round half to even instead and break ties, so
-the card asks cuBLAS for an f32 output (``torch.mm(..., out_dtype=f32)``);
-the CPU upcasts both operands to f32, whose products are exact.
+Two engines, chosen as JAX chooses them (``fastquant.fused_eligible``):
+  * the fast path (``custom_tpu="fused"`` at the kernels' formats): the
+    activation quantize is kernel K1 on the card, the weight quantize and
+    products are plain torch;
+  * the emulation engine (``custom_tpu="ref"``, and the fused engine's
+    fallbacks): the operands elementwise-quantized (bfloat / fp), MX-
+    quantized along the contraction axis by ``ops/mx.py``, multiplied by
+    ``mx_dot``, and the output elementwise-quantized.
+
+The int grids' products take bf16 operands (every int MX grid point is
+exact in bf16) and must give the exact f32 product: the half-away bfloat
+round is applied to the f32 result afterwards.  A bf16 GEMM that writes
+bf16 would round half to even instead, so the card asks cuBLAS for an f32
+output (``torch.mm(..., out_dtype=f32)``); the CPU, and every batched
+product, upcasts both operands to f32, whose products are exact.  The
+float grids' products are full f32 (TF32 must be off, as it is by
+default).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..specs import require_fused
+from ..specs import mx_assert_test
+from .elemwise import quantize_elemwise_op
 from .fastquant import (bf_fast, fused_eligible, gelu_quantize_serving,
                         quantize_mx_fast, quantize_mx_serving)
+from .mx import quantize_mx_op
+
+_INT_FMTS = ("int8", "int4", "int2")
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,22 +64,119 @@ def _linear_fwd_fast(x, w, b, specs):
     return out
 
 
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full-precision f32 product (TF32 must be off, as it is by default)."""
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def mx_dot(a: torch.Tensor, b: torch.Tensor, fmt_a, fmt_b) -> torch.Tensor:
+    """``a @ b`` with the precision JAX picks from the element formats: bf16
+    operands and f32 accumulation where both are int formats (a 2-D ``b``
+    on the card takes ``mm_f32``'s bf16 GEMM with an f32 output), else
+    full f32.  Returns float32."""
+    if fmt_a in _INT_FMTS and fmt_b in _INT_FMTS:
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if b.dim() == 2:
+            return mm_f32(a, b.t())
+    return f32_matmul(a, b)
+
+
+def _linear_fwd(x, w, b, specs):
+    """The emulation linear (JAX ``_linear_fwd``'s forward): elementwise
+    then MX quantize of each operand along the contraction axis."""
+    bf_x = quantize_elemwise_op(x, specs, round=specs.round_output)
+    bf_w = quantize_elemwise_op(w, specs, round=specs.round_weight)
+    bf_b = None if b is None else quantize_elemwise_op(
+        b, specs, round=specs.round_weight)
+    qx = quantize_mx_op(bf_x, specs, elem_format=specs.a_elem_format,
+                        axes=[-1], round=specs.round_mx_output)
+    if specs.prequantized_weights:
+        qw = bf_w  # already on the MX grid (requantizing is idempotent)
+    else:
+        qw = quantize_mx_op(bf_w, specs, elem_format=specs.w_elem_format,
+                            axes=[-1], round=specs.round_mx_output)
+    out = mx_dot(qx, qw.t(), specs.a_elem_format, specs.w_elem_format)
+    out = quantize_elemwise_op(out, specs, round=specs.round_output)
+    if bf_b is not None:
+        out = quantize_elemwise_op(out + bf_b, specs,
+                                   round=specs.round_output)
+    return out
+
+
 def linear(x, w, b=None, mx_specs=None):
     """``x @ w.T + b``.  ``mx_specs=None`` runs the unquantized linear in
     full f32 (TF32 must be off, as it is by default) with JAX's output
-    dtype; otherwise the fused MX forward."""
+    dtype; otherwise the fast path where ``fused_eligible`` holds, else the
+    emulation engine, as in JAX."""
+    mx_assert_test(mx_specs)
     if mx_specs is None:
         out_dtype = torch.result_type(x, w)
         out = torch.matmul(x.to(torch.float32),
                            w.to(torch.float32).t()).to(out_dtype)
         return out if b is None else out + b
-    require_fused(mx_specs)
-    if not fused_eligible(mx_specs, mx_specs.a_elem_format,
-                          mx_specs.w_elem_format):
-        raise NotImplementedError(
-            "these specs need the emulation engine, which is not ported yet "
-            "(ROADMAP.md queue 1)")
-    return _linear_fwd_fast(x, w, b, mx_specs)
+    if fused_eligible(mx_specs, mx_specs.a_elem_format,
+                      mx_specs.w_elem_format):
+        return _linear_fwd_fast(x, w, b, mx_specs)
+    return _linear_fwd(x, w, b, mx_specs)
+
+
+def _fmt(specs, which):
+    return specs.a_elem_format if which == "a" else specs.w_elem_format
+
+
+def _matmul_fwd(a, b, specs, mode_config):
+    """``a @ b`` with operand a MX-quantized along -1 and b along -2, each
+    in the format ``mode_config`` names ("a" activation, "w" weight)."""
+    assert mode_config in ("aa", "aw", "wa")
+    fmt1 = _fmt(specs, mode_config[0])
+    fmt2 = _fmt(specs, mode_config[1])
+    if fused_eligible(specs, fmt1, fmt2):
+        return _matmul_fwd_fast(a, b, specs, fmt1, fmt2)
+    bf_a = quantize_elemwise_op(a, specs, round=specs.round_output)
+    bf_b = quantize_elemwise_op(b, specs, round=specs.round_output)
+    qa = quantize_mx_op(bf_a, specs, elem_format=fmt1, axes=[-1],
+                        round=specs.round_mx_output)
+    qb = quantize_mx_op(bf_b, specs, elem_format=fmt2, axes=[-2],
+                        round=specs.round_mx_output)
+    out = mx_dot(qa, qb, fmt1, fmt2)
+    return quantize_elemwise_op(out, specs, round=specs.round_output)
+
+
+def _matmul_fwd_fast(a, b, specs, fmt1, fmt2):
+    """The fast matmul: operand a through the activation quantize (K1 on
+    the card along a last axis of whole blocks), b quantized along -2."""
+    bs = specs.block_size
+    sb = specs.effective_scale_bits()
+    fl = specs.mx_flush_fp32_subnorms
+    qa = quantize_mx_serving(a, fmt1, bs, sb, axis=-1, flush=fl,
+                             bfloat=specs.bfloat)
+    qb = quantize_mx_fast(bf_fast(b, specs), fmt2, bs, sb, axis=-2,
+                          flush=fl)
+    return bf_fast(f32_matmul(qa, qb), specs)
+
+
+def matmul(a, b, bias=None, mx_specs=None, mode_config="aa"):
+    """``a @ b`` (reference matmul.py:211-222); ``bias`` follows addmm."""
+    mx_assert_test(mx_specs)
+    if mx_specs is None:
+        out = f32_matmul(a, b).to(torch.result_type(a, b))
+        return out if bias is None else out + bias
+    out = _matmul_fwd(a, b, mx_specs, mode_config)
+    if bias is not None:
+        bf_bias = quantize_elemwise_op(bias, mx_specs,
+                                       round=mx_specs.round_weight)
+        out = quantize_elemwise_op(out + bf_bias, mx_specs,
+                                   round=mx_specs.round_output)
+    return out
+
+
+def bmm(a, b, mx_specs=None):
+    """Batched matmul; both operands take a_elem_format (reference
+    bmm.py:40-53)."""
+    mx_assert_test(mx_specs)
+    if mx_specs is None:
+        return f32_matmul(a, b).to(torch.result_type(a, b))
+    return _matmul_fwd(a, b, mx_specs, "aa")
 
 
 def gelu_erf(h: torch.Tensor) -> torch.Tensor:

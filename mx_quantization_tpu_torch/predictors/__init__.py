@@ -1,2 +1,2 @@
-"""Predictors of the port: ELSA's structured projection (the exponent
-family runs inside kernels K3 and K4)."""
+"""Q·K^T predictors: the exponent family and ELSA (kernels K2, K3, K4 and
+K7 compute the same operands inside their tiles)."""

@@ -1,19 +1,25 @@
 """Typed MX quantization config: the port's copy of the JAX package's
 ``specs.py``, with the same knob names and defaults.
 
-``custom_tpu`` names the execution engine, as in the JAX package.  The port
-implements only ``"fused"`` (hand-written kernels on the card, their plain
-versions on the CPU); the ops raise ``NotImplementedError`` for any other
-engine (the emulation engine is queued in ROADMAP.md).
+``custom_tpu`` names the execution engine, as in the JAX package:
+``"ref"`` (the default) is the emulation engine, plain PyTorch that is
+bit-faithful to the reference quantizers (``ops/{bitmath,elemwise,mx}.py``);
+``"fused"`` takes the hand-written kernels on the card (their plain versions
+on the CPU) where JAX takes its Pallas kernels, and the emulation ops where
+JAX falls back to XLA.  Any other name raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Optional
 
 from .formats import ElemFormat, FormatLike
+
+# the execution engines: the emulation engine and the kernels
+ENGINES = ("ref", "fused")
 
 
 def _canon_format(f: FormatLike) -> Optional[str]:
@@ -92,6 +98,9 @@ class MxSpecs:
         if self.shared_exp_method not in ("max", "none"):
             raise ValueError(
                 f"Unknown shared_exp_method {self.shared_exp_method}")
+        if self.custom_tpu not in ENGINES:
+            raise ValueError(f"Unknown engine custom_tpu={self.custom_tpu!r}; "
+                             f"the engines are {ENGINES}")
 
     def finalize(self) -> "MxSpecs":
         """Resolve dependent defaults (bp formats <- fwd, round_* <- round)."""
@@ -173,10 +182,19 @@ def finalize_mx_specs(specs, early_exit: bool = True) -> Optional[MxSpecs]:
     return specs.finalize()
 
 
-def require_fused(specs: MxSpecs) -> None:
-    """The port runs only the fused engine; say so for any other."""
-    if specs.custom_tpu != "fused":
-        raise NotImplementedError(
-            f"engine custom_tpu={specs.custom_tpu!r} is not ported yet: the "
-            "PyTorch port implements only custom_tpu='fused' (the emulation "
-            "engine is queued in ROADMAP.md)")
+_ASSERT_MODE = os.environ.get("MX_ASSERT", "False")
+
+
+def mx_assert_test(mx_specs) -> None:
+    """Raise if MX_ASSERT=True and an MX op is called with specs=None
+    (reference specs.py:351-363): it catches paths that silently fall back
+    to the unquantized op during quantization experiments."""
+    if _ASSERT_MODE == "True" and mx_specs is None:
+        import traceback
+        stack = traceback.extract_stack()
+        f1, f2 = stack[-2], stack[-3]
+        raise ValueError(
+            "MX assert test failed!\n"
+            f"mx_specs is None in function {f1.name}\n"
+            f"Called from {f2.filename}, line {f2.lineno}\n"
+            f"  {f2.line}")

@@ -6,7 +6,9 @@ axis is snapped to the MX grid once, and the specs gain
 ``prequantized_weights=True`` so the forward skips it.  MX quantization is
 idempotent, so the result is numerically identical to quantizing on the
 fly.  Weights the model consumes unquantized (the DiT block adaLN) are left
-alone.  ``serve_dtype=torch.bfloat16`` stores the snapped weights in bf16
+alone.  The fused engine snaps with the fast quantizer after the bfloat
+round, the emulation engine (``custom_tpu="ref"``) with ``quantize_mx`` at
+the specs' shared-exponent method and round, as JAX does.  ``serve_dtype=torch.bfloat16`` stores the snapped weights in bf16
 (exact for every int and fp4/6/8 grid) and casts the remaining unquantized
 matmul weights to bf16 too (not bit-exact against f32 storage).
 
@@ -23,7 +25,8 @@ from torch import nn
 
 from ..formats import format_params
 from ..ops.fastquant import bf_fast, quantize_mx_fast
-from ..specs import MxSpecs, require_fused
+from ..ops.mx import quantize_mx
+from ..specs import MxSpecs
 
 # weights consumed by quantized `linear(...)` calls
 _LINEAR_WEIGHT_RE = re.compile(
@@ -46,23 +49,31 @@ def prequantize_weights(model: nn.Module, specs: MxSpecs,
                         ) -> Tuple[nn.Module, MxSpecs]:
     """Snap matching weights to the MX grid in place; returns
     (model, specs with prequantized_weights=True)."""
-    require_fused(specs)
     fmt = specs.w_elem_format
     if fmt is None:
         raise ValueError("no weight format configured")
+    bs, sb = specs.block_size, specs.effective_scale_bits()
+    fl = specs.mx_flush_fp32_subnorms
     q_dtype = torch.float32
     if serve_dtype is not None and bf16_exact(fmt):
         q_dtype = serve_dtype
+
+    def snap(x):
+        if specs.custom_tpu == "fused":
+            return quantize_mx_fast(bf_fast(x, specs), fmt, bs, sb, axis=-1,
+                                    out_dtype=q_dtype, flush=fl)
+        return quantize_mx(x, sb, fmt, axes=[-1], block_size=bs,
+                           shared_exp_method=specs.shared_exp_method,
+                           round=specs.round_mx_output or "nearest",
+                           flush_fp32_subnorms=fl).to(q_dtype)
+
     with torch.no_grad():
         for name, prm in model.named_parameters():
             if prm.dim() < 2:
                 continue
             if (_LINEAR_WEIGHT_RE.search(name)
                     and not _UNQUANTIZED_RE.search(name)):
-                prm.data = quantize_mx_fast(
-                    bf_fast(prm.data, specs), fmt, specs.block_size,
-                    specs.effective_scale_bits(), axis=-1,
-                    out_dtype=q_dtype, flush=specs.mx_flush_fp32_subnorms)
+                prm.data = snap(prm.data)
             elif serve_dtype is not None and name.endswith(".weight"):
                 prm.data = prm.data.to(serve_dtype)
     return model, specs.replace(prequantized_weights=True)

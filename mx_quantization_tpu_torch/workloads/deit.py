@@ -7,9 +7,10 @@ synthetic batch unless --data-path names an ImageNet validation folder):
     python -m mx_quantization_tpu_torch.workloads.deit \
         --model deit_tiny_patch16_224 --checkpoint deit_tiny.pth \
         --data-path /data/imagenet/val --mx-quant --top-k --k 80
-The JAX CLI's ``--engine ref`` (the emulation engine), ``--sparse-impl
-gather`` and ``--anal`` (the analysis records) have no counterpart in the
-port yet and raise, naming ROADMAP.md.
+``--engine ref`` runs the emulation engine (plain torch, the parity
+oracle) and ``--sparse-impl gather`` the gathered top-k attention, as in
+JAX.  ``--anal`` (the analysis records) has no counterpart in the port yet
+and raises, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -122,21 +123,18 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    for flag, unported in (("--engine ref", args.engine == "ref"),
-                           ("--sparse-impl gather",
-                            args.sparse_impl == "gather"),
-                           ("--anal", args.anal)):
-        if unported:
-            raise NotImplementedError(
-                f"{flag} has no counterpart in the port yet (ROADMAP.md)")
+    if args.anal:
+        raise NotImplementedError(
+            "--anal has no counterpart in the port yet (ROADMAP.md)")
     device = resolve_device(args.device)
     cfg = VIT_CONFIGS[args.model]
-    specs = default_mx_specs() if args.mx_quant else None
+    specs = default_mx_specs(args.engine) if args.mx_quant else None
     qcfg = VitQuantConfig(
         mx_specs=specs, mx_quant=args.mx_quant, top_k=args.top_k, k=args.k,
         approx_flag=not args.no_approx, pred_mode=args.pred_mode,
         exclude_blocks=tuple(args.exclude_blocks),
-        exclude_block_type=args.exclude_block_type, contract=args.contract)
+        exclude_block_type=args.exclude_block_type,
+        sparse_impl=args.sparse_impl, contract=args.contract)
 
     if args.checkpoint:
         from ..utils.checkpoint import load_deit_checkpoint

@@ -7,7 +7,10 @@ Run (random weights unless --ckpt names a DiT checkpoint):
         --exclude-blocks 27 --key-bits 8 --activation-dtype bfloat16 \
         --prequantize --contract serving
 --pred-mode takes every predictor of the kernels; ELSA builds the structured
-orthogonal projection, as the JAX CLI does.
+orthogonal projection, as the JAX CLI does.  ``--engine ref`` runs the
+emulation engine (plain torch, the parity oracle).  ``--vae`` (the decoder)
+and ``--anal`` (the analysis records) are not ported yet and raise, naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -99,6 +102,8 @@ def build_argparser():
                    default=[207, 360, 387, 974, 88, 979, 417, 279])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="samples.npz")
+    p.add_argument("--vae", default=None,
+                   help="sd-vae-ft-mse params for decode (not ported)")
     p.add_argument("--mx-quant", action="store_true")
     p.add_argument("--top-k", action="store_true")
     p.add_argument("--k", type=int, default=154)
@@ -106,8 +111,12 @@ def build_argparser():
     p.add_argument("--pred-mode", default="ex_pred")
     p.add_argument("--exclude-blocks", type=int, nargs="*", default=[27])
     p.add_argument("--exclude-timesteps", type=int, nargs="*", default=[])
+    p.add_argument("--engine", default="fused", choices=["fused", "ref"])
     p.add_argument("--contract", default="exact",
                    choices=["exact", "serving"])
+    p.add_argument("--anal", action="store_true",
+                   help="predictor-quality records (not ported)")
+    p.add_argument("--anal-dir", default="analysis_out")
     p.add_argument("--key-bits", type=int, default=32, choices=[8, 16, 32],
                    help="top-k ranking precision (the bench point uses 8)")
     p.add_argument("--activation-dtype", default="float32",
@@ -121,10 +130,14 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    for flag, unported in (("--vae", args.vae), ("--anal", args.anal)):
+        if unported:
+            raise NotImplementedError(
+                f"{flag} has no counterpart in the port yet (ROADMAP.md)")
     device = resolve_device(args.device)
     cfg = DiT_models[args.model](input_size=args.image_size // 8,
                                  num_classes=args.num_classes)
-    specs = dit_mx_specs() if args.mx_quant else None
+    specs = dit_mx_specs(args.engine) if args.mx_quant else None
     if args.ckpt:
         from ..utils.checkpoint import load_dit_checkpoint
         model = DiT(cfg, device=device)

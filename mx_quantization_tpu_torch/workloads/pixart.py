@@ -12,7 +12,8 @@ Run (random weights unless --transformer-ckpt names a checkpoint):
 --image-size 1024 runs the alpha 1024^2 model (N = 4096 latent tokens, with
 micro-conditioning; its operating point adds --cross-top-k --cross-k 60
 --key-bits 8 --activation-dtype bfloat16 --prequantize); --pred-mode ELSA
-builds the structured orthogonal projection, as the JAX CLI does.
+builds the structured orthogonal projection, as the JAX CLI does;
+--engine ref runs the emulation engine (plain torch, the parity oracle).
 """
 
 from __future__ import annotations

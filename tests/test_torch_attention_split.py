@@ -205,6 +205,10 @@ def test_topk_entry_matches_jax():
 
 
 def test_dispatch_raises_where_jax_leaves_its_kernels():
+    """Where JAX leaves its kernels for the XLA path the port takes its
+    own XLA path (no kernel launches); the serving tier, a kernel tier,
+    raises ValueError there as in JAX."""
+    from mx_quantization_tpu_torch.attention import _xla_topk_dense
     q, k, v, _ = map(_t, split_inputs(40, seed=8, with_bias=False))
     specs = pixart_mx_specs()
     serving = _port_cfg(k=7, sparse_impl="gather", contract="serving")
@@ -213,13 +217,14 @@ def test_dispatch_raises_where_jax_leaves_its_kernels():
     with pytest.raises(ValueError, match="serving"):
         topk_attention(q, k, v, 0.1, specs.replace(bfloat=0, fp=8),
                        serving._replace(sparse_impl="dense", top_k=False))
-    with pytest.raises(NotImplementedError, match="emulation"):
-        topk_attention(q, k, v, 0.1, specs,
-                       serving._replace(contract="exact"))
+    out, idx = topk_attention(q, k, v, 0.1, specs,
+                              serving._replace(contract="exact"))
+    assert out.shape == q.shape and idx.shape == (*q.shape[:3], 7)
     # ELSA takes the kernels for square attention only (JAX's
-    # elsa_kernel_ok): the reference takes the key norms at the query index
+    # elsa_kernel_ok): the reference takes the key norms at the query
+    # index, and the XLA path's ELSA raises on non-square attention
     q64 = torch.cat([q, q[:, :, :24]], dim=2)
-    with pytest.raises(NotImplementedError, match="emulation"):
+    with pytest.raises(ValueError, match="square"):
         topk_attention(q64, k, v, 0.1, specs, _port_cfg(pred_mode="ELSA"))
     with pytest.raises(ValueError, match="serving"):
         topk_attention(q64, k, v, 0.1, specs,
@@ -231,9 +236,11 @@ def test_dispatch_raises_where_jax_leaves_its_kernels():
         out, _ = topk_attention(long, long, long, 0.1, specs, cfg)
         assert out.shape == long.shape
     longer = torch.zeros(1, 1, MAX_TILED_KEYS + 1, D)
-    with pytest.raises(NotImplementedError, match="emulation"):
-        topk_attention(long, longer, longer, 0.1, specs, _port_cfg())
-    with pytest.raises(NotImplementedError, match="emulation"):
-        topk_attention(long, longer, longer, 0.1, specs,
-                       _port_cfg(top_k=False))
+    few = long[:, :, :8]  # the key count decides; few queries keep it quick
+    out, idx = topk_attention(few, longer, longer, 0.1, specs, _port_cfg())
+    assert idx is None and torch.equal(out, _xla_topk_dense(
+        few, longer, longer, 0.1, specs, _port_cfg()))
+    out, _ = topk_attention(few, longer, longer, 0.1, specs,
+                            _port_cfg(top_k=False))
+    assert out.shape == few.shape and torch.isfinite(out).all()
     assert port_specs(PIXART) == specs

@@ -238,10 +238,20 @@ def test_topk_entry_matches_jax_at_640():
 
 
 def test_topk_entry_refuses_past_the_kernel_key_limit():
-    """Past MAX_TILED_KEYS keys JAX leaves its kernels for the XLA path,
-    whose port (the emulation engine) is not done: the port refuses."""
-    q = torch.zeros(1, 1, 640, D)
-    k = torch.zeros(1, 1, MAX_TILED_KEYS + 1, D)
-    for cfg in (TopKAttentionConfig(k=77), TopKAttentionConfig(top_k=False)):
-        with pytest.raises(NotImplementedError, match="emulation"):
-            topk_attention(q, k, k, D ** -0.5, pixart_mx_specs(), cfg)
+    """Past MAX_TILED_KEYS keys JAX leaves its kernels for the XLA path:
+    the port's kernel entry refuses them and ``topk_attention`` takes the
+    port's XLA path instead (the masked-softmax fallback for top-k, the
+    emulation's dense attention without), as JAX does."""
+    from mx_quantization_tpu_torch.attention import _xla_topk_dense
+    rng = np.random.RandomState(5)
+    # the key count decides the route; few queries keep the test quick
+    q = torch.from_numpy(rng.randn(1, 1, 8, D).astype(np.float32))
+    k = torch.from_numpy(rng.randn(1, 1, MAX_TILED_KEYS + 1, D)
+                         .astype(np.float32))
+    cfg = TopKAttentionConfig(k=77)
+    out, idx = topk_attention(q, k, k, D ** -0.5, pixart_mx_specs(), cfg)
+    assert idx is None and torch.equal(out, _xla_topk_dense(
+        q, k, k, D ** -0.5, pixart_mx_specs(), cfg))
+    out, _ = topk_attention(q, k, k, D ** -0.5, pixart_mx_specs(),
+                            TopKAttentionConfig(top_k=False))
+    assert out.shape == q.shape and torch.isfinite(out).all()

@@ -854,3 +854,52 @@ def test_deit_tiny_on_card_matches_plain_versions(cuda, plan, monkeypatch):
     torch.cuda.synchronize()
     assert got.shape == (2, 1000) and torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family", ["elem", "bfloat", "fp", "mx", "mxnone"])
+def test_emulation_quantizers_match_goldens_on_card(cuda, family):
+    """The emulation engine's quantizers (plain torch, no kernel) on CUDA
+    tensors: every reference-torch golden key of the family under
+    tests/test_quantize_parity.py's rule, and bit for bit the port's own
+    CPU result (CUDA keeps subnormals, as the bit arithmetic expects)."""
+    from emulation_goldens import golden_cases, golden_mismatches, load
+    elem, mx_npz = load()
+    n = 0
+    for fam, _, key, x, call in golden_cases(elem, mx_npz):
+        if fam != family:
+            continue
+        n += 1
+        xt = torch.from_numpy(np.ascontiguousarray(x))
+        got = call(xt.to(cuda)).cpu()
+        want = (mx_npz if family.startswith("mx") else elem)[key]
+        assert not golden_mismatches(got, want), key
+        cpu = call(xt)
+        assert torch.equal(got.isnan(), cpu.isnan()), key
+        keep = ~cpu.isnan()
+        assert torch.equal(got[keep].view(torch.int32),
+                           cpu[keep].view(torch.int32)), key
+    assert n
+
+
+@pytest.mark.parametrize("site", ["dit_qkv", "deit_fc1"])
+def test_ref_linear_matches_fused_on_card(cuda, site):
+    """The emulation linear against the fast one (K1 and the bf16 GEMM)
+    at a DiT site (bf16 activations, bfloat=16) and a DeiT site (f32,
+    bfloat 32), within tests/test_fastpath.py's 1e-6 bound."""
+    from mx_quantization_tpu_torch.ops.linear import linear
+    from mx_quantization_tpu_torch.workloads.deit import default_mx_specs
+    if site == "dit_qkv":
+        x = _normal((4, 256, 1152), 1, torch.bfloat16).to(cuda)
+        w, b = _normal((3456, 1152), 2) * 0.03, _normal((3456,), 3)
+        specs = dit_mx_specs()
+    else:
+        x = _normal((4, 197, 384), 4).to(cuda)
+        w, b = _normal((1536, 384), 5) * 0.05, _normal((1536,), 6)
+        specs = default_mx_specs()
+    w, b = w.to(cuda), b.to(cuda)
+    before = mx_quantize.launches
+    fused = linear(x, w, b, mx_specs=specs)
+    assert mx_quantize.launches == before + 1
+    ref = linear(x, w, b, mx_specs=specs.replace(custom_tpu="ref"))
+    assert mx_quantize.launches == before + 1
+    torch.testing.assert_close(ref, fused, rtol=1e-6, atol=1e-6)

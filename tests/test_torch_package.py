@@ -99,12 +99,18 @@ def test_pixart_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 def test_only_the_fused_engine_is_ported():
+    """Both of JAX's engines are ported: the default "ref" (the emulation
+    engine) and "fused"; another engine name raises."""
     specs = finalize_mx_specs(dict(w_elem_format="int8",
                                    a_elem_format="int8", block_size=32))
     assert specs.custom_tpu == "ref"
     x, w = torch.ones(2, 32), torch.ones(4, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        linear(x, w, mx_specs=specs)
+    want = torch.full((2, 4), 32.0)
+    assert torch.equal(linear(x, w, mx_specs=specs), want)
+    assert torch.equal(
+        linear(x, w, mx_specs=specs.replace(custom_tpu="fused")), want)
+    with pytest.raises(ValueError, match="engine"):
+        specs.replace(custom_tpu="triton")
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path, no_cuda):

@@ -349,7 +349,8 @@ def test_mha_matches_jax(models, cross, monkeypatch):
 def test_unported_options_raise():
     """Micro-conditioning and ELSA are ported; what still raises is ELSA in
     the cross-attention (non-square: JAX leaves its kernels for the XLA
-    path there, whose port is not done) and the T5 and VAE flags."""
+    path there, whose ELSA predictor raises ValueError, square attention
+    only, in both packages) and the T5 and VAE flags."""
     cfg = PixArtConfig(**CFG_KW)
     micro = PixArt(PixArtConfig(**{**CFG_KW, "micro_conds": True}),
                    device="cpu")
@@ -363,7 +364,7 @@ def test_unported_options_raise():
     elsa = PixArtQuantConfig(mx_specs=pixart_mx_specs(),
                              **{**QKW, "pred_mode": "ELSA"})
     assert torch.isfinite(pixart_forward(model, x, enc, t, elsa)).all()
-    with pytest.raises(NotImplementedError, match="emulation"):
+    with pytest.raises(ValueError, match="square"):
         pixart_forward(model, x, enc, t, dataclasses.replace(
             elsa, cross_top_k=True, cross_k=5))
     with pytest.raises(NotImplementedError, match="T5"):
