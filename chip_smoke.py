@@ -49,14 +49,22 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      config off the kernels raising, as in JAX
   7. the DiT slice: DiT-XL/2 at full width (random weights from a seed,
      prequantized to bf16), 32 images with CFG (64 rows), 100 DDPM steps,
-     serving tier then exact tier; then the same with the fused opt-ins
-     (fuse_ln_modulate, fuse_gelu, qkv_layout="split_t": K5, K6, K7); then
-     the fused opt-ins in two_step_leading_ones (K7 in the new mode; 20
-     steps per tier, DIT_TWO_STEP_STEPS, cut from 100 to keep the script's
-     time); DiT-XL/2 in each other predictor of the
+     serving tier then exact tier, the noise drawn in the server's order;
+     after each tier the continuous-batching server (``serving.py``, DDPM,
+     32 slots) takes the same 32 requests as one burst: exactly 100
+     dispatches, every latent bit-equal to the tier's sample_dit result;
+     then the server, serving tier, takes a staggered stream of 48
+     requests, one per engine step, at the "25" respacing (slots at
+     different depths in one batch); each server run holds its dispatch
+     and refill under torch.cuda.set_sync_debug_mode("error"); then the
+     fused opt-ins (fuse_ln_modulate, fuse_gelu, qkv_layout="split_t": K5,
+     K6, K7), 20 steps per tier; the fused opt-ins in
+     two_step_leading_ones (K7 in the new mode; 20 steps per tier); the
+     opt-ins' paths and 512^2 were cut from 100 steps to keep the script's
+     time; DiT-XL/2 in each other predictor of the
      qkv entry (K2 in every block, 2 steps per tier) and with ELSA (K3);
      then DiT-XL/2 512^2 (N = 1024 tokens: K4 in every block), 4 images
-     with CFG (8 rows), 100 DDPM steps, serving tier then exact tier
+     with CFG (8 rows), 20 DDPM steps, serving tier then exact tier
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
@@ -72,16 +80,26 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      attention at DeiT-small on the ref engine against K2's exact tier;
      DiT-XL/2 256^2 (64 rows, 2 DDPM steps) and PixArt-alpha 256^2 (16
      rows, 2 DPM-Solver++ steps) on the ref engine, each step time and
-     peak device memory printed
+     peak device memory printed.  The PixArt server: the 256^2 weights
+     prequantized to bf16, K1 and K3 at its sites (64 rows, bf16, key_bits
+     8, per-row caption masks) against their plain versions bit for bit,
+     then a staggered stream of 48 synthetic captions (mask lengths 8 to
+     120), one per engine step, DPM-Solver++ 20 steps, 32 slots, serving
+     tier, dispatch and refill under the sync check; each result's largest
+     difference from sample_pixart on the same caption and initial latent
+     printed, not gated.  PixArt-alpha 1024^2: 5 steps per tier (cut
+     from the probe's 20).  Every server run prints imgs/s, latency and
+     queue-wait p50/p95 from submit() and the mean engine step
      In 7 and 8 every launch count is set to 0 just before a run and read
      just after: each kernel of the path must have launched its per-forward
-     count times the steps (DeiT: batches), and no other kernel at all (on
-     the ref engine none, with "gather" K1 only);
+     count times the steps (DeiT: batches; a server: its dispatches), and
+     no other kernel at all (on the ref engine none, with "gather" K1
+     only);
      each kernel's launches per call site (shape, dtype, arguments) are
      kept
-  9. two serving steps of each sampling path and one serving batch of
-     DeiT-small and of DeiT-base under torch.profiler: device busy share,
-     top kernels
+  9. two serving steps of each sampling path, two engine steps of each
+     server's full pool, and one serving batch of DeiT-small and of
+     DeiT-base under torch.profiler: device busy share, top kernels
  10. kernel times with CUDA events at every call site the paths launched
      (calls queued behind a GPU sleep, so that the host's launch time
      stays out), each site first held bit for bit to its plain version,
@@ -106,13 +124,25 @@ BF16_OPS_PER_S = 989e12
 F32_INSTR_PER_S = 33.5e12
 
 DIT_STEPS = 100
+# the opt-ins' paths and 512^2, cut from 100 steps (the 1024^2 path from
+# the probe's 20) to keep the script's time with the servers' runs
+DIT_OPT_IN_STEPS = 20
 DIT_TWO_STEP_STEPS = 20  # the opt-ins path in two_step: ~0.3 s a step
 DIT_IMAGES = 32
 DIT512_IMAGES = 4  # tools/workload_probe.py dit512_probe
+DIT512_STEPS = 20
 PIXART_STEPS = 20
 PIXART_PROMPTS = 100  # the reference's batch (SURVEY.md, PixArt-alpha 256^2)
 CAPTION_TOKENS = 120
-PIXART1024_STEPS = 20  # tools/workload_probe.py pixart1024_probe
+PIXART1024_STEPS = 5
+# the servers (tools/serving_bench.py operating points): 32 slots (64 model
+# rows), a staggered stream of 48 requests, one per engine step; the DiT
+# stream at the "25" respacing so that slots at different depths share a
+# batch
+SERVER_SLOTS = 32
+SERVER_SEED = 0  # DiffusionServer's default seed
+STAGGERED_REQS = 48
+STAGGERED_DIT_STEPS = 25
 MODE_PROMPTS = 8
 DEIT_BATCH = 100  # tools/workload_probe.py deit_probe
 DEIT_BATCHES = 10
@@ -298,6 +328,7 @@ def main():
         ln_modulate_quantize as lnq
     from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
     from mx_quantization_tpu_torch.predictors.elsa import orthogonal_matrix
+    from mx_quantization_tpu_torch.tools import serving_bench as sb
     from mx_quantization_tpu_torch.ops.kernels.quantize import (
         gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
     from mx_quantization_tpu_torch.utils.prequantize import prequantize_weights
@@ -1023,6 +1054,64 @@ def main():
                 print(f"[slice] {name} {contract}: {n} at {desc}: {c}")
         return out
 
+    servers = {}
+
+    def no_sync(fn):
+        """``fn`` with every synchronizing CUDA call an error."""
+        def run(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    def run_server(name, contract, srv, make_request, reqs, per_dispatch,
+                   shape, period=None):
+        """Serve ``reqs`` requests (a burst, or one every ``period``
+        engine steps) with the server's dispatch and refill under
+        ``no_sync`` and every count set to 0 just before and read just
+        after: each kernel of the path must have launched its per-forward
+        count times the dispatches, and no other kernel at all; every
+        request answered with a finite latent of ``shape``."""
+        srv._dispatch = no_sync(srv._dispatch)
+        srv._fill_slots = no_sync(srv._fill_slots)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+            w.sites.clear()
+        run = sb.serve(srv, make_request, reqs, period)
+        torch.cuda.synchronize()
+        label = f"{name} {contract}"
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n, w in wrappers.items():
+            main_sites[n].update(w.sites)
+            main_launches[n] += counts[n]
+        path_launches[label] = counts
+        for n, c in counts.items():
+            if c != per_dispatch.get(n, 0) * run["dispatches"]:
+                fail(f"{label}: {n} launched {c} times, expected "
+                     f"{per_dispatch.get(n, 0)} per dispatch x "
+                     f"{run['dispatches']}")
+        if sorted(run["results"]) != [10000 + i for i in range(reqs)]:
+            fail(f"{label}: answered {sorted(run['results'])}")
+        for r in run["results"].values():
+            if r.latent.shape != shape or not np.isfinite(r.latent).all():
+                fail(f"{label}: request {r.request_id}'s latent is not "
+                     "finite / of its shape")
+        stats = servers[label] = sb.summary(run)
+        print(f"[server] {label}: {reqs} requests, "
+              f"{'burst' if period is None else 'one per engine step'}, "
+              f"{stats['dispatches']} dispatches in {stats['wall_s']:.2f} s "
+              f"= {stats['imgs_per_s']:.4f} imgs/s; latency from submit "
+              f"p50 {stats['latency_p50_s']:.3f} s p95 "
+              f"{stats['latency_p95_s']:.3f} s; queue wait p50 "
+              f"{stats['queue_wait_p50_s']:.4f} s p95 "
+              f"{stats['queue_wait_p95_s']:.4f} s; engine step "
+              f"{stats['step_ms']:.2f} ms; dispatch and refill without a "
+              f"host sync; launches {counts}", flush=True)
+        return run
+
     # 7. DiT-XL/2
     cfg = DiT_models["DiT-XL/2"](input_size=32)
     t0 = time.perf_counter()
@@ -1036,18 +1125,47 @@ def main():
                            ex_pred=True, exclude_blocks=(27,),
                            topk_key_bits=8, activation_dtype="bfloat16")
     labels = list(range(DIT_IMAGES))
+    dit_per_fwd = {K1: 4 * cfg.depth + 2, K2: cfg.depth}
+    # the servers' draws, replayed: a burst of DIT_IMAGES requests into as
+    # many slots runs in lockstep, so sample_dit on these draws is the
+    # server's result, bit for bit
+    replay = torch.Generator(device=dev).manual_seed(SERVER_SEED)
+    z = torch.stack([torch.randn((4, 32, 32), generator=replay, device=dev)
+                     for _ in labels])
+    step_noise = [torch.randn((SERVER_SLOTS, 4, 32, 32), generator=replay,
+                              device=dev).repeat(2, 1, 1, 1)
+                  for _ in range(DIT_STEPS)]
     for contract in ("serving", "exact"):
         qc = dataclasses.replace(dit_q, contract=contract)
         sample_dit(model, qc, labels, gen, num_steps=2, device=dev)  # warm
-        lat = run_path("DiT-XL/2", contract, DIT_STEPS,
-                       {K1: 4 * cfg.depth + 2, K2: cfg.depth}, DIT_IMAGES,
-                       lambda: sample_dit(model, qc, labels, gen,
+        lat = run_path("DiT-XL/2", contract, DIT_STEPS, dit_per_fwd,
+                       DIT_IMAGES,
+                       lambda: sample_dit(model, qc, labels, z=z,
+                                          step_noise=step_noise,
                                           num_steps=DIT_STEPS, device=dev))
         if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
                 not torch.isfinite(lat).all():
             fail(f"DiT {contract}: latents not finite / wrong shape")
         print(f"[slice] DiT-XL/2 {contract}: latent std "
               f"{lat.float().std().item():.4g}")
+        # 7s. the DiT server: the same burst, DDPM, CFG 4.0, as many slots
+        srv = sb.dit_server(model, specs, contract, SERVER_SLOTS, DIT_STEPS,
+                            dev)
+        run = run_server("DiT-XL/2 server burst", contract, srv,
+                         sb.dit_request, DIT_IMAGES, dit_per_fwd,
+                         (4, 32, 32))
+        if run["dispatches"] != DIT_STEPS:
+            fail(f"DiT server {contract}: {run['dispatches']} dispatches for "
+                 f"one wave of {DIT_STEPS} steps")
+        for i in range(DIT_IMAGES):
+            if not torch.equal(torch.from_numpy(
+                    run["results"][10000 + i].latent), lat[i].cpu()):
+                fail(f"DiT server {contract}: request {i}'s latent differs "
+                     "from sample_dit's")
+        print(f"[server] DiT-XL/2 burst {contract}: {DIT_IMAGES} latents "
+              f"bit-equal to sample_dit's, {run['dispatches']} dispatches",
+              flush=True)
+    del z, step_noise
 
     def profile(label, fn, steps):
         from torch.autograd import DeviceType
@@ -1069,11 +1187,28 @@ def main():
             print(f"[profile] {label} {e.self_device_time_total / (1e3 * steps):9.2f}"
                   f" ms/step {e.count // steps:6d}x  {e.key[:90]}")
 
+    def profile_server(label, srv, make_request):
+        """Two engine steps of a drained server's full pool under the
+        profiler."""
+        for i in range(srv.slots):
+            srv.submit(make_request(i, i))
+        srv.step()  # fills the pool
+        profile(label, lambda: [srv.step() for _ in range(2)], 2)
+
     # 9. where the time goes (two steps: respacing to a single DDPM step
     # leaves no posterior variance table)
     qc = dataclasses.replace(dit_q, contract="serving")
     profile("DiT-XL/2", lambda: sample_dit(model, qc, labels, gen,
                                            num_steps=2, device=dev), 2)
+
+    # 7s. the DiT server, serving tier, a staggered stream at the "25"
+    # respacing: slots at different depths share every batch
+    srv = sb.dit_server(model, specs, "serving", SERVER_SLOTS,
+                        STAGGERED_DIT_STEPS, dev)
+    run_server(f"DiT-XL/2 server staggered {STAGGERED_DIT_STEPS} steps",
+               "serving", srv, sb.dit_request, STAGGERED_REQS, dit_per_fwd,
+               (4, 32, 32), period=1)
+    profile_server("DiT-XL/2 server", srv, sb.dit_request)
 
     # 7. DiT-XL/2 with the fused opt-ins: the same model and weights; per
     # forward, serving: K5 before qkv and fc1 of every block and the final
@@ -1089,10 +1224,11 @@ def main():
     for contract in ("serving", "exact"):
         qc = dataclasses.replace(fused_q, contract=contract)
         sample_dit(model, qc, labels, gen, num_steps=2, device=dev)  # warm
-        lat = run_path("DiT-XL/2 fused opt-ins", contract, DIT_STEPS,
+        lat = run_path("DiT-XL/2 fused opt-ins", contract, DIT_OPT_IN_STEPS,
                        fused_per_fwd[contract], DIT_IMAGES,
                        lambda: sample_dit(model, qc, labels, gen,
-                                          num_steps=DIT_STEPS, device=dev))
+                                          num_steps=DIT_OPT_IN_STEPS,
+                                          device=dev))
         if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
                 not torch.isfinite(lat).all():
             fail(f"DiT fused opt-ins {contract}: latents not finite / wrong "
@@ -1169,11 +1305,11 @@ def main():
     for contract in ("serving", "exact"):
         qc = dataclasses.replace(dit512_q, contract=contract)
         sample_dit(model, qc, labels512, gen, num_steps=2, device=dev)  # warm
-        lat = run_path("DiT-XL/2 512^2", contract, DIT_STEPS,
+        lat = run_path("DiT-XL/2 512^2", contract, DIT512_STEPS,
                        {K1: 4 * cfg512.depth + 2, K4: cfg512.depth},
                        DIT512_IMAGES,
                        lambda: sample_dit(model, qc, labels512, gen,
-                                          num_steps=DIT_STEPS, device=dev))
+                                          num_steps=DIT512_STEPS, device=dev))
         if lat.shape != (DIT512_IMAGES, 4, 64, 64) or \
                 not torch.isfinite(lat).all():
             fail(f"DiT 512 {contract}: latents not finite / wrong shape")
@@ -1268,7 +1404,80 @@ def main():
         fail("PixArt ref: latents not finite / wrong shape")
     print(f"[slice] PixArt-alpha-256 ref exact: latent std "
           f"{lat.float().std().item():.4g}", flush=True)
-    del pmodel, embeds, null
+    del embeds, null
+
+    # 8s. the PixArt server at its operating point: the same weights
+    # prequantized to bf16, bf16 activations at 64 model rows, key_bits 8,
+    # DPM-Solver++ 20 steps, CFG 4.5, a staggered stream of synthetic
+    # captions with mask lengths from 8 to 120.  First K1 and K3 at the
+    # server's sites (bf16, 64 rows; the cross bias from per-row masks)
+    # against their plain versions, bit for bit
+    pmodel, pspecs = prequantize_weights(pmodel, pixart_mx_specs(),
+                                         serve_dtype=torch.bfloat16)
+    rows = 2 * SERVER_SLOTS
+    for shape in ((rows, 256, 1152), (rows, CAPTION_TOKENS, 1152),
+                  (rows, 256, 4608)):
+        x = randn(*shape, dtype=torch.bfloat16)
+        for bfloat in (0, 32):
+            check_k1(x, flush=True, bfloat=bfloat)
+    print(f"[k1] the PixArt server's sites ({rows} rows, bf16, flush, bfloat "
+          "0/32): bit-equal", flush=True)
+    q, kx, kc = (randn(rows, H, n, D, scale=4.0, dtype=torch.bfloat16)
+                 for n in (256, 256, CAPTION_TOKENS))
+    vx, vc = (randn(rows, H, n, D, dtype=torch.bfloat16)
+              for n in (256, CAPTION_TOKENS))
+    bias, _ = caption_bias(rows, CAPTION_TOKENS, dev)
+    for contract in ("serving", "exact"):
+        kw = dict(scale=D ** -0.5, key_bits=8, flush=True, contract=contract,
+                  out_dtype=torch.bfloat16)
+        check_k3("server self top-k two_step k=77", q, kx, vx, None, k=77,
+                 pred_mode="two_step_leading_ones", **kw)
+        check_k3("server self dense", q, kx, vx, None, k=256, approx=False,
+                 **kw)
+        check_k3("server cross dense S=120 bias", q, kc, vc, bias,
+                 k=CAPTION_TOKENS, approx=False, **kw)
+    del q, kx, vx, kc, vc, bias
+
+    # the static sampler on the same captions and initial latents (the
+    # server's refill draws, replayed), for the printed differences; and
+    # on the first SERVER_SLOTS of them alone, for the spread that the
+    # batch's shape alone makes (cuBLAS picks its kernels by shape)
+    replay = torch.Generator(device=dev).manual_seed(SERVER_SEED)
+    z = torch.stack([torch.randn((4, 32, 32), generator=replay, device=dev)
+                     for _ in range(STAGGERED_REQS)])
+    conds = [sb.pixart_request(0, i).condition
+             for i in range(STAGGERED_REQS)]
+    embeds = torch.from_numpy(np.stack([c["embeds"] for c in conds]))
+    mask = torch.from_numpy(np.stack([c["mask"] for c in conds]))
+    null = torch.from_numpy(sb.pixart_null()["embeds"])[None]
+
+    def static(n):
+        return sample_pixart(pmodel, sb.pixart_qcfg(pspecs, "serving"),
+                             embeds[:n], mask[:n], null,
+                             num_steps=PIXART_STEPS, latents=z[:n],
+                             device=dev).cpu()
+    ref = static(STAGGERED_REQS)
+    spread = (static(SERVER_SLOTS) - ref[:SERVER_SLOTS]).abs().amax(
+        dim=(1, 2, 3))
+    print(f"[server] sample_pixart alone, {SERVER_SLOTS} prompts against "
+          f"the same in a batch of {STAGGERED_REQS}: max |diff| "
+          f"{spread.max().item():.3e}, median {spread.median().item():.3e} "
+          f"(latent std {ref.std().item():.4g})", flush=True)
+    del z, conds, embeds, mask, null
+    srv = sb.pixart_server(pmodel, pspecs, "serving", SERVER_SLOTS,
+                           PIXART_STEPS, dev)
+    run = run_server("PixArt-alpha-256 server staggered", "serving", srv,
+                     sb.pixart_request, STAGGERED_REQS, pix_per_fwd,
+                     (4, 32, 32), period=1)
+    diffs = [(torch.from_numpy(run["results"][10000 + i].latent) - ref[i]
+              ).abs().max().item() for i in range(STAGGERED_REQS)]
+    print(f"[server] PixArt-alpha-256 staggered: each result's max |diff| "
+          f"from sample_pixart (same caption and initial latent, 96 rows, "
+          f"not gated): max {max(diffs):.3e}, median "
+          f"{float(np.median(diffs)):.3e}: "
+          f"{[float(f'{d:.3g}') for d in diffs]}", flush=True)
+    profile_server("PixArt-alpha-256 server", srv, sb.pixart_request)
+    del pmodel, srv, ref
 
     # 8. PixArt-alpha 1024^2 (tools/workload_probe.py pixart1024_probe):
     # sample_size 128 (N = 4096 latent tokens) with micro-conditioning, 1
@@ -1741,7 +1950,8 @@ def main():
              bound_by=k7["bound_by"], library_ms=None, sites=k7_sites),
     ]
     stamp("kernel times done")
-    print(json.dumps({"tiers": tiers, "launches_by_path": path_launches}))
+    print(json.dumps({"tiers": tiers, "servers": servers,
+                      "launches_by_path": path_launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """DiT sampling: CFG sampling over the respaced DDPM loop (port of the JAX
-package's ``workloads/dit.py`` ``dit_mx_specs``, ``sample_dit`` and CLI).
+package's ``workloads/dit.py``: ``dit_mx_specs``, ``sample_dit``,
+``sample_for_fid`` and the CLI).
 
 Run (random weights unless --ckpt names a DiT checkpoint):
     python -m mx_quantization_tpu_torch.workloads.dit --model DiT-XL/2 \
@@ -88,6 +89,30 @@ def sample_dit(model: DiT, qcfg: DiTQuantConfig, class_labels: Sequence[int],
             x = diffusion.p_sample_step(model_fn, x, i, noise,
                                         model_kwargs={"y": y})
     return x[:n]
+
+
+def sample_for_fid(model: DiT, qcfg: DiTQuantConfig, num_samples: int,
+                   batch: int, generator: Optional[torch.Generator] = None,
+                   rank: int = 0, world: int = 1, num_steps: int = 100,
+                   cfg_scale: float = 1.5, orthogonal_matrix=None,
+                   start_index: int = 0, device="cuda") -> np.ndarray:
+    """Balanced-class sharded sample generation (reference sample_ddp.py:
+    105-171): rank r samples labels r, r+world, ... cycling over classes,
+    in batches through ``sample_dit``, each batch's noise drawn from
+    ``generator`` in turn.
+
+    start_index resumes an interrupted run by skipping already-generated
+    samples (the reference's --current-num-samples manual-resume knob,
+    sample_ddp.py:170,198)."""
+    labels = np.arange(num_samples) % model.cfg.num_classes
+    shard = labels[rank::world][start_index:]
+    outs = []
+    for i in range(0, len(shard), batch):
+        lat = sample_dit(model, qcfg, shard[i:i + batch].tolist(), generator,
+                         num_steps=num_steps, cfg_scale=cfg_scale,
+                         device=device, orthogonal_matrix=orthogonal_matrix)
+        outs.append(lat.cpu().numpy())
+    return np.concatenate(outs) if outs else np.zeros((0,))
 
 
 def build_argparser():

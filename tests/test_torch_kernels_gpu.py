@@ -903,3 +903,89 @@ def test_ref_linear_matches_fused_on_card(cuda, site):
     ref = linear(x, w, b, mx_specs=specs.replace(custom_tpu="ref"))
     assert mx_quantize.launches == before + 1
     torch.testing.assert_close(ref, fused, rtol=1e-6, atol=1e-6)
+
+
+def _no_sync(fn):
+    """``fn`` with every synchronizing CUDA call an error."""
+    def run(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+@pytest.mark.parametrize("solver", ["ddpm", "dpm++"])
+def test_server_dispatch_and_refill_do_not_sync(cuda, solver):
+    """The continuous-batching server on the card with every host sync an
+    error in its dispatch and its refill: a small fused-engine DiT with
+    top-k (K1, K2) under DDPM, and a small PixArt with MXINT8 two_step
+    top-k (K1, K3) and dict conditions from numpy under DPM-Solver++; a
+    staggered stream, every request answered.  The DiT burst is also
+    sample_dit's result, bit for bit, with the server's noise replayed."""
+    from mx_quantization_tpu_torch.serving import DiffusionServer, Request
+    rng = np.random.RandomState(0)
+    if solver == "ddpm":
+        cfg = DiTConfig(input_size=8, hidden_size=64, depth=2, num_heads=2,
+                        num_classes=10)
+        model = init_dit(cfg, torch.Generator().manual_seed(0), cuda,
+                         randomize_all=True)
+        qcfg = DiTQuantConfig(mx_specs=dit_mx_specs(), mx_quant=True,
+                              top_k=True, k=6, exclude_blocks=(1,),
+                              topk_key_bits=8, contract="serving",
+                              activation_dtype="bfloat16")
+
+        def model_fn(x, t, y):
+            return dit_forward(model, x, t, y, qcfg)
+        null, make = 10, (lambda i: i % 10)
+    else:
+        from mx_quantization_tpu_torch.models.pixart import pixart_forward
+        cfg = PixArtConfig(num_attention_heads=2, attention_head_dim=32,
+                           num_layers=2, sample_size=8, patch_size=2,
+                           cross_attention_dim=64, caption_channels=48,
+                           micro_conds=False)
+        model = init_pixart(cfg, torch.Generator().manual_seed(0), cuda)
+        qcfg = PixArtQuantConfig(
+            mx_specs=pixart_mx_specs(), mx_quant=True, self_top_k=True,
+            self_k=8, ex_pred=True, pred_mode="two_step_leading_ones",
+            topk_key_bits=8, contract="serving")
+
+        def model_fn(x, t, cond):
+            return pixart_forward(model, x, cond["embeds"], t, qcfg,
+                                  encoder_attention_mask=cond["mask"])
+        null = {"embeds": rng.randn(6, 48).astype(np.float32) * 0.02,
+                "mask": np.ones((6,), np.float32)}
+
+        def make(i):
+            return {"embeds": rng.randn(6, 48).astype(np.float32) * 0.02,
+                    "mask": (np.arange(6) < 2 + i % 5).astype(np.float32)}
+    srv = DiffusionServer(model_fn, (4, 8, 8), num_steps=4, slots=3,
+                          solver=solver, null_condition=null, seed=5,
+                          device=cuda)
+    srv._dispatch = _no_sync(srv._dispatch)
+    srv._fill_slots = _no_sync(srv._fill_slots)
+    for i in range(5):
+        srv.submit(Request(i, make(i)))
+        srv.step()
+    res = srv.run_until_drained()
+    assert sorted(res) == list(range(5))
+    assert all(np.isfinite(r.latent).all() and r.latent.shape == (4, 8, 8)
+               for r in res.values())
+    if solver == "dpm++":
+        return
+    srv = DiffusionServer(model_fn, (4, 8, 8), num_steps=4, slots=3,
+                          null_condition=null, seed=5, device=cuda)
+    for i in range(3):
+        srv.submit(Request(i, i))
+    res = srv.run_until_drained()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    z = torch.stack([torch.randn((4, 8, 8), generator=g, device=cuda)
+                     for _ in range(3)])
+    noise = [torch.randn((3, 4, 8, 8), generator=g, device=cuda)
+             for _ in range(4)]
+    want = sample_dit(model, qcfg, [0, 1, 2], num_steps=4, z=z,
+                      step_noise=[torch.cat([n, n]) for n in noise],
+                      device=cuda).cpu()
+    for i in range(3):
+        assert torch.equal(torch.from_numpy(res[i].latent), want[i])
