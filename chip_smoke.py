@@ -90,6 +90,22 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      printed, not gated.  PixArt-alpha 1024^2: 5 steps per tier (cut
      from the probe's 20).  Every server run prints imgs/s, latency and
      queue-wait p50/p95 from submit() and the mean engine step
+  8e. the end-task path (after PixArt-alpha 256^2, on its model): each of
+     T5, the VAE, Inception and CLIP on the card against itself on the CPU
+     at a small size; T5-XXL (t5-v1_1-xxl, 4.76 B weights, f32, random from
+     a seed on the card) encodes 4 seeded prompts and the empty one (120
+     tokens, mask lengths 8 to 120), f32 and MXINT8 (K1 168 launches per
+     encode, every other kernel 0; K1 bit for bit at its two new sites),
+     then is freed; PixArt-alpha 256^2 samples the 4 prompts for 20 steps;
+     the VAE (sd-vae-ft-mse's widths) decodes them, phase 7's 32 DiT
+     latents and one 1024^2 latent, and encodes 4 images; the full
+     Inception network extracts features (256^2 and 1024^2 inputs); CLIP
+     ViT-L/14 embeds the PixArt images and 4 seeded 77-token ids, f32 and
+     MXINT8 (K1 218 launches), the score in [0, 100]; then ``accuracy dit``
+     (10 samples, 2 steps) and ``accuracy pixart`` (the 4 prompts, 2 steps)
+     through their ``main``, reading the VAE, Inception, reference and
+     embeds files written to a temporary directory; each step's time and
+     peak memory printed
      In 7 and 8 every launch count is set to 0 just before a run and read
      just after: each kernel of the path must have launched its per-forward
      count times the steps (DeiT: batches; a server: its dispatches), and
@@ -144,6 +160,13 @@ SERVER_SEED = 0  # DiffusionServer's default seed
 STAGGERED_REQS = 48
 STAGGERED_DIT_STEPS = 25
 MODE_PROMPTS = 8
+# the end-task phase: T5-XXL encodes T5_PROMPTS seeded prompts and the
+# empty one; the accuracy CLIs sample a few images for a few steps (the
+# Inception Score's ten splits need ten samples)
+T5_PROMPTS = 4
+CLIP_TOKENS = 77
+ACCURACY_SAMPLES = 10
+ACCURACY_STEPS = 2
 DEIT_BATCH = 100  # tools/workload_probe.py deit_probe
 DEIT_BATCHES = 10
 DEIT_TOKENS = 197  # 14 x 14 patches and the cls token
@@ -293,6 +316,349 @@ def caption_bias(B, S, device, shortest=8):
     valid = torch.linspace(shortest, S, B, device=device).round()
     mask = (torch.arange(S, device=device)[None] < valid[:, None]).float()
     return ((1 - mask) * -10000.0)[:, None, None, :], mask
+
+
+def random_pt_inception(seed):
+    """pt_inception-2015-12-05's keys with random values: He-scaled conv
+    weights, batch norms with random affine parameters and statistics."""
+    import torch
+    from mx_quantization_tpu_torch.evaluation import inception as inc
+    g = torch.Generator().manual_seed(seed)
+    shapes = {n: tuple(p.shape)
+              for n, p in inc.InceptionV3("cpu").named_parameters()}
+    sd = {}
+    for pre in inc.inception_checkpoint_names():
+        w = shapes[pre + ".w"]
+        sd[pre + ".conv.weight"] = torch.randn(w, generator=g) * (
+            2.0 / (w[1] * w[2] * w[3])) ** 0.5
+        sd[pre + ".bn.weight"] = 0.5 + torch.rand(w[0], generator=g)
+        sd[pre + ".bn.bias"] = 0.1 * torch.randn(w[0], generator=g)
+        sd[pre + ".bn.running_mean"] = 0.1 * torch.randn(w[0], generator=g)
+        sd[pre + ".bn.running_var"] = 0.5 + torch.rand(w[0], generator=g)
+    sd["fc.weight"] = 0.05 * torch.randn(inc.NUM_CLASSES, 2048, generator=g)
+    sd["fc.bias"] = 0.01 * torch.randn(inc.NUM_CLASSES, generator=g)
+    return sd
+
+
+def endtask(dev, smi, pmodel, pix_q, pix_per_fwd, dit_latents, dit_per_fwd,
+            run_path, check_k1):
+    """The end-task path at full width with random weights from seeds:
+    T5-XXL prompt encoding (f32 and MXINT8, K1 launches per encode counted,
+    K1 bit for bit at T5's two new sites), PixArt-alpha 256^2 sampling on
+    those embeds, the VAE (PixArt's and DiT's latents, one 1024^2 latent,
+    encode_images), the Inception extractor, CLIP ViT-L/14 (f32 and
+    MXINT8) and the CLIP score, then ``accuracy dit`` (its FID report
+    between phase 7's DiT images and its samples, every metric finite) and
+    ``accuracy pixart`` through their ``main`` on files written to a
+    temporary directory.  Each module first agrees on a small input with
+    itself on the CPU.  Returns each step's ms and peak GB."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mx_quantization_tpu_torch.evaluation import inception as inc
+    from mx_quantization_tpu_torch.evaluation.clip_score import \
+        clip_score_from_features
+    from mx_quantization_tpu_torch.evaluation.npz_io import \
+        latents_to_images
+    from mx_quantization_tpu_torch.models import clip, t5, vae
+    from mx_quantization_tpu_torch.workloads import accuracy
+    from mx_quantization_tpu_torch.workloads.pixart import (pixart_mx_specs,
+                                                            sample_pixart)
+    K1 = "mx_quantize"
+    specs = pixart_mx_specs()
+    stats = {}
+    print(f"[endtask] {smi}", flush=True)
+
+    def step(label, fn, per=1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        stats[label] = dict(ms=ms, ms_each=ms / per, peak_gb=peak)
+        print(f"[endtask] {label}: {ms:.2f} ms ({ms / per:.2f} ms each of "
+              f"{per}), max_memory_allocated {peak:.2f} GB", flush=True)
+        return res
+
+    def finite(label, x, shape):
+        if tuple(x.shape) != tuple(shape) or not torch.isfinite(x).all():
+            fail(f"{label}: {tuple(x.shape)} not finite / not {shape}")
+
+    def agree(label, got, want, rel=1e-4):
+        got, want = got.float().cpu(), want.float().cpu()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        print(f"[endtask] {label}: card against CPU max |diff| {err:.3e} "
+              f"(largest {scale:.3e})", flush=True)
+        if not err <= rel * scale:
+            fail(f"{label}: the card's result is not within {rel} of the "
+                 "CPU's")
+
+    # 0. each module on the card against itself on the CPU, small inputs
+    cpu, gc = torch.device("cpu"), torch.Generator().manual_seed(5)
+    tiny_t5 = t5.T5Config(vocab_size=256, d_model=64, d_kv=16, d_ff=128,
+                          num_layers=3, num_heads=4,
+                          relative_attention_num_buckets=8,
+                          relative_attention_max_distance=32)
+    mc = t5.init_t5_encoder(tiny_t5, gc, cpu)
+    md = t5.T5Encoder(tiny_t5, dev)
+    md.load_state_dict(mc.state_dict())
+    ids = torch.randint(0, 256, (3, 20), generator=gc)
+    msk = (torch.arange(20)[None] < torch.tensor([[20], [11], [1]])).int()
+    agree("T5 tiny encode", t5.t5_encode(md, ids, msk),
+          t5.t5_encode(mc, ids, msk))
+    # MXINT8: K1 on the card, its plain version on the CPU; f32 sums in
+    # another order may move an element by one MX grid step (2^-6 of the
+    # largest magnitude)
+    agree("T5 tiny encode MXINT8", t5.t5_encode(md, ids, msk, specs),
+          t5.t5_encode(mc, ids, msk, specs), rel=2.0 ** -6)
+    narrow = vae.VaeConfig(block_ch=(32, 64))
+    mc = vae.init_vae(narrow, gc, cpu)
+    md = vae.AutoencoderKL(narrow, dev)
+    md.load_state_dict(mc.state_dict())
+    z = torch.randn(2, 4, 6, 5, generator=gc)
+    agree("VAE narrow decode", vae.decode_latents(md, z),
+          vae.decode_latents(mc, z))
+    x = torch.rand(2, 3, 16, 12, generator=gc) * 2 - 1
+    agree("VAE narrow encode", vae.encode_images(md, x),
+          vae.encode_images(mc, x))
+    inc_sd = inc.load_inception_checkpoint(random_pt_inception(0))
+    mc, md = inc.InceptionV3(cpu), inc.InceptionV3(dev)
+    mc.load_state_dict(inc_sd)
+    md.load_state_dict(inc_sd)
+    u8 = torch.randint(0, 256, (1, 96, 96, 3), generator=gc,
+                       dtype=torch.uint8).numpy()
+    fc_, fd_ = (inc.extract_features_batched(m, u8) for m in (mc, md))
+    for key in ("pool3", "spatial", "pred"):
+        agree(f"Inception {key}", torch.from_numpy(fd_[key]),
+              torch.from_numpy(fc_[key]))
+    tiny_clip = clip.ClipConfig(
+        image_size=28, patch_size=14, v_hidden=64, v_layers=2, v_heads=2,
+        v_mlp=128, vocab_size=100, max_positions=16, t_hidden=32,
+        t_layers=2, t_heads=2, t_mlp=64, projection_dim=24)
+    mc = clip.init_clip(tiny_clip, gc, cpu)
+    md = clip.Clip(tiny_clip, dev)
+    md.load_state_dict(mc.state_dict())
+    px = torch.randn(2, 3, 28, 28, generator=gc)
+    agree("CLIP tiny image embeds", clip.clip_image_embed(md, px),
+          clip.clip_image_embed(mc, px))
+    ids = torch.randint(3, 99, (3, 16), generator=gc)
+    agree("CLIP tiny text embeds", clip.clip_text_embed(md, ids, msk[:, :16]),
+          clip.clip_text_embed(mc, ids, msk[:, :16]))
+    del mc, md
+
+    # 1. T5-XXL: 4 prompts and the empty prompt, seeded ids, 120 tokens
+    # (mask lengths 8 to 120; the empty prompt is its end token alone)
+    tcfg = t5.T5_CONFIGS["t5-v1_1-xxl"]
+    torch.cuda.reset_peak_memory_stats()
+    model = step("T5-XXL init on the card (f32)", lambda: t5.init_t5_encoder(
+        tcfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_par = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(0)
+    lengths = [*np.linspace(8, CAPTION_TOKENS, T5_PROMPTS).round().astype(
+        int), 1]
+    ids = np.zeros((T5_PROMPTS + 1, CAPTION_TOKENS), np.int64)
+    for i, n in enumerate(lengths):
+        ids[i, :n - 1] = rng.randint(2, tcfg.vocab_size, n - 1)
+        ids[i, n - 1] = 1  # T5's end token
+    mask = (np.arange(CAPTION_TOKENS)[None] <
+            np.array(lengths)[:, None]).astype(np.int32)
+    ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    t5.t5_encode(model, ids, mask)  # warm
+    emb = run_path("T5-XXL encode", "f32", 1, {}, T5_PROMPTS + 1,
+                   lambda: step("T5-XXL encode f32 (5 prompts)",
+                                lambda: t5.t5_encode(model, ids, mask),
+                                T5_PROMPTS + 1), unit="prompts")
+    finite("T5-XXL f32", emb, (T5_PROMPTS + 1, CAPTION_TOKENS, tcfg.d_model))
+    t5.t5_encode(model, ids, mask, mx_specs=specs)  # warm
+    per_encode = {K1: 7 * tcfg.num_layers}
+    embq = run_path("T5-XXL encode MXINT8", "fused", 1, per_encode,
+                    T5_PROMPTS + 1,
+                    lambda: step("T5-XXL encode MXINT8 (5 prompts)",
+                                 lambda: t5.t5_encode(model, ids, mask,
+                                                      mx_specs=specs),
+                                 T5_PROMPTS + 1), unit="prompts")
+    finite("T5-XXL MXINT8", embq, emb.shape)
+    rel = ((embq - emb).abs().mean() / emb.abs().mean()).item()
+    print(f"[endtask] T5-XXL: {n_par / 1e9:.3f} B parameters; K1 "
+          f"{per_encode[K1]} launches per MXINT8 encode and no other kernel "
+          f"(asserted); MXINT8 against f32 embeds: mean |diff| / mean |x| "
+          f"{rel:.3e}", flush=True)
+    for c in (tcfg.d_model, tcfg.d_ff):
+        check_k1(torch.randn(T5_PROMPTS + 1, CAPTION_TOKENS, c, device=dev),
+                 flush=True, bfloat=32)
+    print(f"[k1] T5-XXL's sites ({T5_PROMPTS + 1}, {CAPTION_TOKENS}, "
+          f"{tcfg.d_model} / {tcfg.d_ff}) f32 flush bfloat 32: bit-equal",
+          flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    stats["T5-XXL peak_gb"] = peak
+    print(f"[endtask] T5-XXL freed: peak {peak:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after",
+          flush=True)
+
+    # 2. the T5-XXL embeds through PixArt-alpha 256^2, 20 steps
+    embeds, null = emb[:T5_PROMPTS], emb[T5_PROMPTS:]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sample_pixart(pmodel, pix_q, embeds, mask[:T5_PROMPTS], null, gen,
+                  num_steps=1, device=dev)  # warm
+    plat = run_path("PixArt-alpha-256 on T5-XXL embeds", "serving",
+                    PIXART_STEPS, pix_per_fwd, T5_PROMPTS,
+                    lambda: sample_pixart(pmodel, pix_q, embeds,
+                                          mask[:T5_PROMPTS], null, gen,
+                                          num_steps=PIXART_STEPS,
+                                          device=dev))
+    finite("PixArt on T5 embeds", plat, (T5_PROMPTS, 4, 32, 32))
+
+    # 3. the VAE (sd-vae-ft-mse's architecture)
+    vmodel = step("VAE init on the card", lambda: vae.init_vae(
+        vae.VaeConfig(), torch.Generator(device=dev).manual_seed(2), dev))
+    vae.decode_latents(vmodel, plat[:1])  # warm
+    pix_imgs = step(f"VAE decode PixArt-256 latents ({T5_PROMPTS})",
+                    lambda: vae.decode_latents(vmodel, plat), T5_PROMPTS)
+    finite("VAE PixArt-256", pix_imgs, (T5_PROMPTS, 3, 256, 256))
+    n_dit = len(dit_latents)
+    dit_imgs = step(f"VAE decode DiT-256 latents ({n_dit}, batches of 8)",
+                    lambda: torch.cat([vae.decode_latents(
+                        vmodel, dit_latents[i:i + 8])
+                        for i in range(0, n_dit, 8)]), n_dit)
+    finite("VAE DiT-256", dit_imgs, (n_dit, 3, 256, 256))
+    z = torch.randn(1, 4, 128, 128, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    big = step("VAE decode 1024^2 (1, 4, 128, 128; mid attention over "
+               "16,384 tokens)", lambda: vae.decode_latents(vmodel, z))
+    finite("VAE 1024^2", big, (1, 3, 1024, 1024))
+    enc = step(f"VAE encode_images ({T5_PROMPTS} x 256^2)",
+               lambda: vae.encode_images(vmodel, pix_imgs.clamp(-1, 1)),
+               T5_PROMPTS)
+    finite("VAE encode", enc, (T5_PROMPTS, 4, 32, 32))
+
+    def to_u8(x):
+        return latents_to_images(x.float().cpu().numpy())
+    pix_u8, dit_u8, big_u8 = to_u8(pix_imgs), to_u8(dit_imgs), to_u8(big)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_endtask_") as tmp:
+        # 4. Inception (the full network) and the FID report
+        inc_path = os.path.join(tmp, "pt_inception.pth")
+        torch.save(random_pt_inception(1), inc_path)
+        imodel = inc.InceptionV3(dev)
+        imodel.load_state_dict(inc.load_inception_checkpoint(inc_path))
+        inc.extract_features_batched(imodel, dit_u8[:2])  # warm
+        fd = step(f"Inception features ({n_dit} x 256^2, resized to 299)",
+                  lambda: inc.extract_features_batched(imodel, dit_u8),
+                  n_dit)
+        fb = step("Inception features (1 x 1024^2, antialiased to 299)",
+                  lambda: inc.extract_features_batched(imodel, big_u8))
+        for f, n in ((fd, n_dit), (fb, 1)):
+            if f["pool3"].shape != (n, 2048) or \
+                    f["spatial"].shape != (n, 2023) or \
+                    not all(np.isfinite(v).all() for v in f.values()):
+                fail("Inception features not finite / wrong shape")
+
+        # 5. CLIP ViT-L/14: the PixArt images and seeded 77-token ids
+        ccfg = clip.ClipConfig()
+        cmodel = step("CLIP ViT-L/14 init on the card", lambda: clip.init_clip(
+            ccfg, torch.Generator(device=dev).manual_seed(4), dev))
+        px = step(f"CLIP preprocess ({T5_PROMPTS} x 256^2 -> 224^2, "
+                  "bicubic)", lambda: clip.preprocess_images(pix_u8, ccfg,
+                                                             dev))
+        clen = np.linspace(5, CLIP_TOKENS, T5_PROMPTS).round().astype(int)
+        cids = np.zeros((T5_PROMPTS, CLIP_TOKENS), np.int64)
+        for i, n in enumerate(clen):
+            cids[i, :n - 1] = rng.randint(1, ccfg.vocab_size - 2, n - 1)
+            cids[i, n - 1] = ccfg.vocab_size - 1  # the end token: highest
+        cmask = torch.from_numpy((np.arange(CLIP_TOKENS)[None] <
+                                  clen[:, None]).astype(np.int32)).to(dev)
+        cids = torch.from_numpy(cids).to(dev)
+        clip.clip_image_embed(cmodel, px)  # warm
+        clip.clip_text_embed(cmodel, cids, cmask)
+        ie = step(f"CLIP image embeds ({T5_PROMPTS})",
+                  lambda: clip.clip_image_embed(cmodel, px), T5_PROMPTS)
+        te = step(f"CLIP text embeds ({T5_PROMPTS} x {CLIP_TOKENS})",
+                  lambda: clip.clip_text_embed(cmodel, cids, cmask),
+                  T5_PROMPTS)
+        finite("CLIP image", ie, (T5_PROMPTS, ccfg.projection_dim))
+        finite("CLIP text", te, (T5_PROMPTS, ccfg.projection_dim))
+        score = clip_score_from_features(ie.cpu().numpy(), te.cpu().numpy())
+        print(f"[endtask] CLIP score (random towers) {score:.4f}", flush=True)
+        if not 0 <= score <= 100:
+            fail(f"CLIP score {score} outside [0, 100]")
+        for shape in ((T5_PROMPTS, ccfg.num_patches + 1, ccfg.v_hidden),
+                      (T5_PROMPTS, ccfg.num_patches + 1, ccfg.v_mlp),
+                      (T5_PROMPTS, CLIP_TOKENS, ccfg.t_hidden),
+                      (T5_PROMPTS, CLIP_TOKENS, ccfg.t_mlp)):
+            check_k1(torch.randn(*shape, device=dev), flush=True, bfloat=32)
+        print("[k1] CLIP ViT-L/14's sites f32 flush bfloat 32: bit-equal",
+              flush=True)
+        per_pair = {K1: 6 * (ccfg.v_layers + ccfg.t_layers) + 2}
+        clip.clip_image_embed(cmodel, px, mx_specs=specs)  # warm
+        clip.clip_text_embed(cmodel, cids, cmask, mx_specs=specs)
+        ieq, teq = run_path(
+            "CLIP ViT-L/14 MXINT8 (image and text towers)", "fused", 1,
+            per_pair, T5_PROMPTS, lambda: step(
+                f"CLIP MXINT8 image + text embeds ({T5_PROMPTS} pairs)",
+                lambda: (clip.clip_image_embed(cmodel, px, mx_specs=specs),
+                         clip.clip_text_embed(cmodel, cids, cmask,
+                                              mx_specs=specs)),
+                T5_PROMPTS), unit="pairs")
+        scoreq = clip_score_from_features(ieq.cpu().numpy(),
+                                          teq.cpu().numpy())
+        print(f"[endtask] CLIP score MXINT8 {scoreq:.4f} (f32 {score:.4f})",
+              flush=True)
+        if not 0 <= scoreq <= 100:
+            fail(f"CLIP MXINT8 score {scoreq} outside [0, 100]")
+        del cmodel, px, ie, te, ieq, teq
+
+        # 6. accuracy dit and accuracy pixart through their main: the VAE,
+        # Inception and reference files and the embeds npz as a user has
+        # them, read by the normal loaders
+        vae_path = os.path.join(tmp, "vae.bin")
+        sd = vmodel.state_dict()
+        torch.save({theirs: sd[ours].cpu() for ours, theirs
+                    in vae.vae_checkpoint_names().items()}, vae_path)
+        del vmodel, sd
+        ref_path = os.path.join(tmp, "ref_images.npz")
+        np.savez(ref_path, arr_0=dit_u8)
+        emb_path = os.path.join(tmp, "t5_embeds.npz")
+        np.savez(emb_path, embeds=emb[:T5_PROMPTS].cpu().numpy(),
+                 mask=mask[:T5_PROMPTS].cpu().numpy(),
+                 null_embeds=emb[T5_PROMPTS:].cpu().numpy())
+        common = ["--vae", vae_path, "--ref", ref_path, "--inception",
+                  inc_path, "--num-steps", str(ACCURACY_STEPS),
+                  "--device", str(dev)]
+        rep = run_path(
+            "accuracy dit (DiT-XL/2 256^2)", "exact", ACCURACY_STEPS,
+            dit_per_fwd, ACCURACY_SAMPLES, lambda: step(
+                f"accuracy dit ({ACCURACY_SAMPLES} samples, "
+                f"{ACCURACY_STEPS} steps, VAE, Inception, FID)",
+                lambda: accuracy.main(
+                    ["dit", "--num-samples", str(ACCURACY_SAMPLES),
+                     "--batch", str(ACCURACY_SAMPLES), "--out",
+                     os.path.join(tmp, "dit.npz")] + common),
+                ACCURACY_SAMPLES))
+        # the report between two generated sets (phase 7's DiT images and
+        # these samples): every metric finite (the Inception Score's ten
+        # splits need the ten samples)
+        if set(rep) != {"fid", "sfid", "inception_score", "precision",
+                        "recall"} or not np.isfinite(list(rep.values())).all():
+            fail(f"accuracy dit: {rep}")
+        rep = run_path(
+            "accuracy pixart (PixArt-alpha 256^2, T5-XXL embeds)", "exact",
+            ACCURACY_STEPS, pix_per_fwd, T5_PROMPTS, lambda: step(
+                f"accuracy pixart ({T5_PROMPTS} prompts, {ACCURACY_STEPS} "
+                "steps, VAE, Inception, FID)",
+                lambda: accuracy.main(
+                    ["pixart", "--prompt-embeds", emb_path, "--batch",
+                     str(T5_PROMPTS), "--out",
+                     os.path.join(tmp, "pixart.npz")] + common),
+                T5_PROMPTS))
+        if rep["samples"] != T5_PROMPTS or not np.isfinite(rep["fid"]):
+            fail(f"accuracy pixart: {rep}")
+    return stats
 
 
 def main():
@@ -1018,7 +1384,7 @@ def main():
     path_launches = {}
     tiers = {}
 
-    def run_path(name, contract, steps, per_fwd, units, fn):
+    def run_path(name, contract, steps, per_fwd, units, fn, unit="images"):
         """Drive one tier of a slice with every count set to 0 just before
         and read just after."""
         torch.cuda.synchronize()
@@ -1042,8 +1408,8 @@ def main():
         tiers[f"{name} {contract}"] = dict(
             imgs_per_s=units / dt, step_ms=1e3 * dt / steps,
             max_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        print(f"[slice] {name} {contract}: {units} images, {steps} steps "
-              f"in {dt:.2f} s = {units / dt:.4f} imgs/s, step "
+        print(f"[slice] {name} {contract}: {units} {unit}, {steps} steps "
+              f"in {dt:.2f} s = {units / dt:.4f} {unit}/s, step "
               f"{1e3 * dt / steps:.2f} ms, max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
               f"{counts}", flush=True)
@@ -1165,6 +1531,7 @@ def main():
         print(f"[server] DiT-XL/2 burst {contract}: {DIT_IMAGES} latents "
               f"bit-equal to sample_dit's, {run['dispatches']} dispatches",
               flush=True)
+    dit_latents = lat  # the exact tier's, decoded in the end-task phase
     del z, step_noise
 
     def profile(label, fn, steps):
@@ -1405,6 +1772,16 @@ def main():
     print(f"[slice] PixArt-alpha-256 ref exact: latent std "
           f"{lat.float().std().item():.4g}", flush=True)
     del embeds, null
+
+    # 8e. the end-task path at full width: T5-XXL, the VAE, Inception, CLIP
+    # and workloads/accuracy.py
+    stamp("end-task phase starts")
+    endtask_stats = endtask(dev, smi, pmodel,
+                            dataclasses.replace(pix_q, contract="serving"),
+                            pix_per_fwd, dit_latents, dit_per_fwd, run_path,
+                            check_k1)
+    del dit_latents
+    stamp("end-task phase done")
 
     # 8s. the PixArt server at its operating point: the same weights
     # prequantized to bf16, bf16 activations at 64 model rows, key_bits 8,
@@ -1951,6 +2328,7 @@ def main():
     ]
     stamp("kernel times done")
     print(json.dumps({"tiers": tiers, "servers": servers,
+                      "endtask": endtask_stats,
                       "launches_by_path": path_launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

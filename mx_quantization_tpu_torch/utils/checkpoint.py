@@ -1,7 +1,10 @@
 """DiT, PixArt-alpha and DeiT weights into the port: from the JAX
 package's parameter trees, and from the public checkpoint layouts (the DiT
 release, diffusers' PixArtTransformer2DModel, timm's VisionTransformer);
-port of the JAX package's ``utils/checkpoint.py`` loaders.
+port of the JAX package's ``utils/checkpoint.py`` loaders.  The T5
+encoder's, the VAE's, the Inception extractor's and CLIP's JAX trees load
+here too (``*_params_from_jax``); their public checkpoints load through
+their modules' ``load_*_checkpoint``.
 
 The port's ``DiT``, ``PixArt`` and ``ViT`` modules name their parameters
 after the JAX trees (``blocks.<i>.attn.qkv.weight``,
@@ -20,8 +23,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..evaluation.inception import InceptionV3
+from ..models.clip import Clip, ClipConfig
 from ..models.dit import DiT, DiTConfig
 from ..models.pixart import PixArt, PixArtConfig
+from ..models.t5 import T5Config, T5Encoder
+from ..models.vae import AutoencoderKL, VaeConfig
 from ..models.vit import ViT, VitConfig
 
 
@@ -31,21 +38,19 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _fill_from_jax(model: nn.Module, np_tree: dict) -> nn.Module:
-    """Load a JAX parameter tree (numpy arrays; the block parameters
-    stacked along a leading depth axis) into ``model`` by name."""
+    """Load a JAX parameter tree (numpy arrays in nested dicts and lists;
+    DiT's, PixArt's and the ViT's block parameters stacked along a leading
+    depth axis under "blocks") into ``model`` by name."""
     sd: Dict[str, torch.Tensor] = {}
     for name in model.state_dict():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            node, idx = np_tree["blocks"], int(parts[1])
-            for key in parts[2:]:
-                node = node[key]
-            sd[name] = _tensor(np.asarray(node)[idx])
-        else:
-            node = np_tree
-            for key in parts:
-                node = node[key]
-            sd[name] = _tensor(node)
+        node, idx = np_tree, None
+        if parts[0] == "blocks" and isinstance(np_tree["blocks"], dict):
+            node, idx, parts = np_tree["blocks"], int(parts[1]), parts[2:]
+        for key in parts:
+            node = node[int(key)] if isinstance(node, (list, tuple)) \
+                else node[key]
+        sd[name] = _tensor(node if idx is None else np.asarray(node)[idx])
     model.load_state_dict(sd)
     return model
 
@@ -67,6 +72,30 @@ def vit_params_from_jax(np_tree: dict, cfg: VitConfig,
                         device="cuda") -> ViT:
     """The JAX package's ViT parameter tree -> a ``ViT`` module."""
     return _fill_from_jax(ViT(cfg, device=device), np_tree)
+
+
+def t5_params_from_jax(np_tree: dict, cfg: T5Config,
+                       device="cuda") -> T5Encoder:
+    """The JAX package's T5 encoder tree -> a ``T5Encoder`` module."""
+    return _fill_from_jax(T5Encoder(cfg, device=device), np_tree)
+
+
+def vae_params_from_jax(np_tree: dict, cfg: VaeConfig = VaeConfig(),
+                        device="cuda") -> AutoencoderKL:
+    """The JAX package's VAE tree -> an ``AutoencoderKL`` module."""
+    return _fill_from_jax(AutoencoderKL(cfg, device=device), np_tree)
+
+
+def inception_params_from_jax(np_tree: dict, device="cuda") -> InceptionV3:
+    """The JAX package's Inception tree (batch norms folded) -> an
+    ``InceptionV3`` module."""
+    return _fill_from_jax(InceptionV3(device=device), np_tree)
+
+
+def clip_params_from_jax(np_tree: dict, cfg: ClipConfig,
+                         device="cuda") -> Clip:
+    """The JAX package's CLIP tree -> a ``Clip`` module."""
+    return _fill_from_jax(Clip(cfg, device=device), np_tree)
 
 
 def load_dit_checkpoint(path: str, depth: int = 28) -> Dict[str, torch.Tensor]:

@@ -9,9 +9,10 @@ Run (random weights unless --ckpt names a DiT checkpoint):
         --prequantize --contract serving
 --pred-mode takes every predictor of the kernels; ELSA builds the structured
 orthogonal projection, as the JAX CLI does.  ``--engine ref`` runs the
-emulation engine (plain torch, the parity oracle).  ``--vae`` (the decoder)
-and ``--anal`` (the analysis records) are not ported yet and raise, naming
-ROADMAP.md.
+emulation engine (plain torch, the parity oracle).  ``--vae`` decodes the
+latents with an sd-vae-ft-mse checkpoint (``models/vae.py``) and writes
+the images beside them.  ``--anal`` (the analysis records) is not ported
+yet and raises, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ def build_argparser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="samples.npz")
     p.add_argument("--vae", default=None,
-                   help="sd-vae-ft-mse params for decode (not ported)")
+                   help="sd-vae-ft-mse checkpoint: decode the latents")
     p.add_argument("--mx-quant", action="store_true")
     p.add_argument("--top-k", action="store_true")
     p.add_argument("--k", type=int, default=154)
@@ -155,10 +156,9 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    for flag, unported in (("--vae", args.vae), ("--anal", args.anal)):
-        if unported:
-            raise NotImplementedError(
-                f"{flag} has no counterpart in the port yet (ROADMAP.md)")
+    if args.anal:
+        raise NotImplementedError(
+            "--anal has no counterpart in the port yet (ROADMAP.md)")
     device = resolve_device(args.device)
     cfg = DiT_models[args.model](input_size=args.image_size // 8,
                                  num_classes=args.num_classes)
@@ -193,7 +193,16 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"sampled {lat.shape} in {dt:.1f}s "
           f"({len(args.classes) / dt:.3f} imgs/s)")
-    np.savez(args.out, latents=lat, labels=np.asarray(args.classes))
+    if args.vae:
+        from ..models.vae import (AutoencoderKL, decode_latents,
+                                  load_vae_checkpoint)
+        vae = AutoencoderKL(device=device)
+        vae.load_state_dict(load_vae_checkpoint(args.vae))
+        imgs = decode_latents(vae, torch.from_numpy(lat)).cpu().numpy()
+        np.savez(args.out, samples=imgs, latents=lat,
+                 labels=np.asarray(args.classes))
+    else:
+        np.savez(args.out, latents=lat, labels=np.asarray(args.classes))
     print(f"wrote {args.out}")
 
 

@@ -1,10 +1,14 @@
 """PixArt-alpha text-to-image sampling (port of the JAX package's
-``workloads/pixart.py``: ``pixart_mx_specs``, ``sample_pixart`` and the CLI).
+``workloads/pixart.py``: ``pixart_mx_specs``, ``encode_prompts_t5``,
+``sample_pixart`` and the CLI).
 
-The T5 text encoding runs offline, as in the reference pipeline: the CLI
-reads an .npz of (embeds, mask, null_embeds) with --prompt-embeds, or makes
-synthetic embeds from the seed.  The T5 encoder and the VAE decoder are not
-ported yet (ROADMAP.md), so the CLI writes latents.
+Phase 1, the T5 prompt encoding: the CLI reads an .npz of (embeds, mask,
+null_embeds) with --prompt-embeds (the reference encodes offline and frees
+its T5), or encodes --prompts with the port's T5 encoder from a local
+checkpoint folder with --t5-path (``encode_prompts_t5``; transformers'
+tokenizer), or makes synthetic embeds from the seed.  Phase 2: the MX
+PixArt transformer with DPM-Solver++ sampling; with --vae the latents are
+decoded (``models/vae.py``) and the images written beside them.
 
 Run (random weights unless --transformer-ckpt names a checkpoint):
     python -m mx_quantization_tpu_torch.workloads.pixart --mx-quant \\
@@ -20,8 +24,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
+import json
+import os
 import time
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +51,65 @@ def pixart_mx_specs(custom_tpu: str = "fused") -> MxSpecs:
         shared_exp_method="max", block_size=32, bfloat=32, fp=0,
         round="nearest", mx_flush_fp32_subnorms=True,
         quantize_backprop=False, custom_tpu=custom_tpu))
+
+
+def encode_prompts_t5(prompts: List[str], t5_path: str, max_length: int = 120,
+                      backend: str = "port", quantize: bool = False,
+                      device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """T5 prompt encoding with a local checkpoint folder (reference
+    alpha:86-99): transformers' tokenizer pads or truncates each prompt to
+    ``max_length`` tokens.  backend="port": the port's encoder
+    (``models/t5.py``) on ``device`` from the folder's ``*.safetensors`` or
+    ``pytorch_model*.bin`` and its config.json, MXINT8-quantized with
+    ``quantize=True`` (``pixart_mx_specs("fused")``, where the reference
+    runs an 8-bit T5); backend="transformers": transformers'
+    T5EncoderModel on the CPU.  transformers reads only local files (the
+    folder), never the hub.  Returns (embeds (N, L, d_model) f32, mask
+    (N, L) int32)."""
+    from transformers import AutoTokenizer
+
+    if backend not in ("port", "transformers"):
+        raise ValueError(f"unknown T5 backend {backend!r}")
+    cands = (glob.glob(os.path.join(t5_path, "*.safetensors")) +
+             glob.glob(os.path.join(t5_path, "pytorch_model*.bin")))
+    if backend == "port" and not cands:
+        raise FileNotFoundError(f"no T5 weights under {t5_path}")
+    tok = AutoTokenizer.from_pretrained(t5_path, local_files_only=True)
+    inputs = tok(prompts, max_length=max_length, padding="max_length",
+                 truncation=True, return_tensors="np")
+    ids = inputs["input_ids"].astype(np.int64)
+    mask = inputs["attention_mask"].astype(np.int32)
+    if backend == "transformers":
+        from transformers import T5EncoderModel
+        enc = T5EncoderModel.from_pretrained(t5_path, local_files_only=True)
+        enc.eval()
+        with torch.no_grad():
+            out = enc(input_ids=torch.from_numpy(ids),
+                      attention_mask=torch.from_numpy(mask))
+        return out.last_hidden_state.numpy().astype(np.float32), mask
+
+    from ..models.t5 import (T5_CONFIGS, T5Config, T5Encoder,
+                             load_t5_checkpoint, t5_encode)
+    t5c = T5_CONFIGS["t5-v1_1-xxl"]   # where the folder has no config.json
+    cfg_file = os.path.join(t5_path, "config.json")
+    if os.path.exists(cfg_file):
+        with open(cfg_file) as f:
+            hf = json.load(f)
+        t5c = T5Config(
+            vocab_size=hf.get("vocab_size", 32128),
+            d_model=hf.get("d_model", 4096), d_kv=hf.get("d_kv", 64),
+            d_ff=hf.get("d_ff", 10240), num_layers=hf.get("num_layers", 24),
+            num_heads=hf.get("num_heads", 64),
+            relative_attention_num_buckets=hf.get(
+                "relative_attention_num_buckets", 32),
+            relative_attention_max_distance=hf.get(
+                "relative_attention_max_distance", 128))
+    model = T5Encoder(t5c, device)
+    model.load_state_dict(load_t5_checkpoint(cands[0], t5c))
+    specs = pixart_mx_specs("fused") if quantize else None
+    out = t5_encode(model, torch.from_numpy(ids), torch.from_numpy(mask),
+                    mx_specs=specs)
+    return out.float().cpu().numpy(), mask
 
 
 def sample_pixart(model: PixArt, qcfg: PixArtQuantConfig,
@@ -139,10 +205,6 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.t5_path or args.vae:
-        raise NotImplementedError(
-            "the T5 encoder and the VAE are not ported yet (ROADMAP.md); "
-            "pass --prompt-embeds, and decode the latents elsewhere")
     device = resolve_device(args.device)
     cfg = PixArtConfig(sample_size=args.image_size // 8,
                        num_layers=args.num_layers,
@@ -166,6 +228,13 @@ def main(argv=None):
         embeds, mask = z["embeds"], z["mask"]
         null = z["null_embeds"] if "null_embeds" in z else \
             np.zeros_like(embeds[:1])
+    elif args.t5_path:
+        # the prompts and the empty prompt in one encode (the rows are
+        # independent), so the checkpoint is read once; the null row's mask
+        # is not used (the sampler gives the null rows a full mask)
+        out, masks = encode_prompts_t5(args.prompts + [""], args.t5_path,
+                                       tok_len, device=device)
+        embeds, mask, null = out[:-1], masks[:-1], out[-1:]
     else:
         print("WARNING: no --prompt-embeds: synthetic embeds (smoke test)")
         rng = np.random.RandomState(0)
@@ -206,7 +275,15 @@ def main(argv=None):
                         orthogonal_matrix=om)
     lat = lat.cpu().numpy()
     print(f"sampled {lat.shape} in {time.perf_counter() - t0:.1f}s")
-    np.savez(args.out, latents=lat)
+    if args.vae:
+        from ..models.vae import (AutoencoderKL, decode_latents,
+                                  load_vae_checkpoint)
+        vae = AutoencoderKL(device=device)
+        vae.load_state_dict(load_vae_checkpoint(args.vae))
+        imgs = decode_latents(vae, torch.from_numpy(lat)).cpu().numpy()
+        np.savez(args.out, samples=imgs, latents=lat)
+    else:
+        np.savez(args.out, latents=lat)
     print(f"wrote {args.out}")
 
 

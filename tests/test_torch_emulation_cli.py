@@ -6,9 +6,8 @@ Every option of JAX's ``build_argparser`` is in the port's with the same
 default, choices, nargs and type; the port adds only ``--device`` (the
 card or the CPU) and, on the DiT and PixArt CLIs, ``--key-bits``,
 ``--activation-dtype`` and ``--prequantize`` (the serving operating
-points).  The options the port does not serve yet (DeiT's ``--anal``,
-DiT's ``--vae`` and ``--anal``, PixArt's ``--t5-path`` and ``--vae``) are
-parsed and raise, naming ROADMAP.md.
+points).  The options the port does not serve yet (DeiT's and DiT's
+``--anal``) are parsed and raise, naming ROADMAP.md.
 """
 
 import numpy as np
@@ -83,7 +82,5 @@ def test_clis_run_the_ref_engine_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert lat.shape == (1, 4, 8, 8) and np.isfinite(lat).all()
     assert _launches() == before  # the ref engine runs no kernel
     capsys.readouterr()
-    for flag in ("--vae", "--anal"):
-        args = [flag] + ([str(tmp_path)] if flag == "--vae" else [])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dit.main(["--device", "cpu"] + args)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dit.main(["--device", "cpu", "--anal"])

@@ -3,8 +3,9 @@ the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA;
 K3: split q/k/v top-k attention, CUDA, every predictor mode; K4: its
 query-tiled long-sequence path, CUDA; K5: LN + modulate + MX quantize,
 CUDA; K6: GELU + MX quantize, Triton; K7: split-emission qkv top-k
-attention, CUDA), and the slices' forwards on the card against the same
-forwards on the plain versions.
+attention, CUDA), K1 at the end-task path's sites (T5-XXL, CLIP), and the
+slices' forwards on the card against the same forwards on the plain
+versions.
 
 Marked ``gpu``; each test skips where no CUDA device exists.  On a machine
 with one:  python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q
@@ -68,6 +69,49 @@ def test_k1_matches_plain(cuda, fmt, dtype, bfloat, flush):
                            bfloat=bfloat)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(5, 120, 4096), (5, 120, 10240),
+                                   (4, 257, 1024), (4, 77, 3072)])
+def test_k1_end_task_sites(cuda, shape):
+    """K1 at the end-task path's sites: T5-XXL's projections (4096) and
+    FFN output (10240) inputs over 5 prompts of 120 tokens, and CLIP
+    ViT-L/14's image (257 tokens) and text (77) towers, at the PixArt specs
+    (f32, MXINT8, flush, bfloat 32) as ``encode_prompts_t5(quantize=True)``
+    runs them."""
+    x = _normal(shape, 7).to(cuda)
+    x[0, 0, :32] = 1e-39  # a block of subnormals: flushed
+    for bfloat in (0, 32):
+        got = mx_quantize(x, "int8", 32, 8, flush=True, bfloat=bfloat)
+        want = mx_quantize_ref(x, "int8", 32, 8, flush=True, bfloat=bfloat)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_t5_encode_counts_k1(cuda):
+    """A tiny T5 encode with the PixArt specs launches K1 seven times a
+    layer on the card, and agrees with the same encode on the CPU's plain
+    version within the CPU tests' block bound."""
+    from mx_quantization_tpu_torch.models.t5 import (T5Config, T5Encoder,
+                                                     init_t5_encoder,
+                                                     t5_encode)
+    cfg = T5Config(vocab_size=256, d_model=64, d_kv=16, d_ff=128,
+                   num_layers=3, num_heads=4,
+                   relative_attention_num_buckets=8,
+                   relative_attention_max_distance=32)
+    cpu = init_t5_encoder(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = T5Encoder(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 256, (3, 20), generator=torch.Generator())
+    mask = (torch.arange(20)[None] < torch.tensor([[20], [11], [1]])).int()
+    before = mx_quantize.launches
+    got = t5_encode(card, ids, mask, mx_specs=pixart_mx_specs())
+    assert mx_quantize.launches - before == 7 * cfg.num_layers
+    want = t5_encode(cpu, ids, mask, mx_specs=pixart_mx_specs())
+    scale = want.abs().max()
+    diff = (got.cpu() - want).abs()
+    assert (diff > 1e-6 * scale).float().mean() <= 0.01
+    assert diff.max() <= 2.0 ** -6 * scale
 
 
 _K2_CASES = [  # (B, N, H, D, k, key_bits, contract)

@@ -350,7 +350,8 @@ def test_unported_options_raise():
     """Micro-conditioning and ELSA are ported; what still raises is ELSA in
     the cross-attention (non-square: JAX leaves its kernels for the XLA
     path there, whose ELSA predictor raises ValueError, square attention
-    only, in both packages) and the T5 and VAE flags."""
+    only, in both packages).  The T5 flag is ported: a folder without T5
+    weights raises before anything is read."""
     cfg = PixArtConfig(**CFG_KW)
     micro = PixArt(PixArtConfig(**{**CFG_KW, "micro_conds": True}),
                    device="cpu")
@@ -367,5 +368,5 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="square"):
         pixart_forward(model, x, enc, t, dataclasses.replace(
             elsa, cross_top_k=True, cross_k=5))
-    with pytest.raises(NotImplementedError, match="T5"):
+    with pytest.raises(FileNotFoundError, match="no T5 weights"):
         pixart_main(["--device", "cpu", "--t5-path", "t5"])
