@@ -58,13 +58,13 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      different depths in one batch); each server run holds its dispatch
      and refill under torch.cuda.set_sync_debug_mode("error"); then the
      fused opt-ins (fuse_ln_modulate, fuse_gelu, qkv_layout="split_t": K5,
-     K6, K7), 20 steps per tier; the fused opt-ins in
-     two_step_leading_ones (K7 in the new mode; 20 steps per tier); the
+     K6, K7), 10 steps per tier; the fused opt-ins in
+     two_step_leading_ones (K7 in the new mode; 10 steps per tier); the
      opt-ins' paths and 512^2 were cut from 100 steps to keep the script's
      time; DiT-XL/2 in each other predictor of the
      qkv entry (K2 in every block, 2 steps per tier) and with ELSA (K3);
      then DiT-XL/2 512^2 (N = 1024 tokens: K4 in every block), 4 images
-     with CFG (8 rows), 20 DDPM steps, serving tier then exact tier
+     with CFG (8 rows), 10 DDPM steps, serving tier then exact tier
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
@@ -78,7 +78,7 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      prequantized through its branch, exact tier) and DeiT-small with
      sparse_impl="gather" on the fused engine, 2 batches each; block 0's
      attention at DeiT-small on the ref engine against K2's exact tier;
-     DiT-XL/2 256^2 (64 rows, 2 DDPM steps) and PixArt-alpha 256^2 (16
+     DiT-XL/2 256^2 (16 rows, 2 DDPM steps) and PixArt-alpha 256^2 (16
      rows, 2 DPM-Solver++ steps) on the ref engine, each step time and
      peak device memory printed.  The PixArt server: the 256^2 weights
      prequantized to bf16, K1 and K3 at its sites (64 rows, bf16, key_bits
@@ -106,6 +106,19 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      through their ``main``, reading the VAE, Inception, reference and
      embeds files written to a temporary directory; each step's time and
      peak memory printed
+  8t. quantization-aware training (after 8e): the reference torch
+     trajectory golden (tests/golden/train_traj.npz, 4 SGD steps, the
+     emulation engine) at tests/test_train_trajectory_golden.py's bounds;
+     a tiny DiT step (depth 2) on the card against itself on the CPU, the
+     loss and every gradient; DiT-XL/2 256^2 at full width and depth
+     (random weights, MXINT8 with quantize_backprop, fused engine, exact
+     tier, ex_pred k=154, key_bits 8, block 27 dense), batch 32 of VAE
+     latents of synthetic images read back through latent_npz_dataset,
+     AdamW and the EMA, and DeiT-small 224^2 (ex_pred k=60, batch 64):
+     each one warm-up step (K1 and K2 held bit for bit to their plain
+     versions at one training-step call each) and 2 timed steps, K1 and
+     K2 at their per-step counts (the surrogate backward's K1 included),
+     every loss and gradient finite; step time and peak memory printed
      In 7 and 8 every launch count is set to 0 just before a run and read
      just after: each kernel of the path must have launched its per-forward
      count times the steps (DeiT: batches; a server: its dispatches), and
@@ -114,8 +127,10 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      each kernel's launches per call site (shape, dtype, arguments) are
      kept
   9. two serving steps of each sampling path, two engine steps of each
-     server's full pool, and one serving batch of DeiT-small and of
-     DeiT-base under torch.profiler: device busy share, top kernels
+     server's full pool, one serving batch of DeiT-small and of DeiT-base,
+     and one DiT-XL/2 training step (its forward, backward and optimizer
+     spans from CUDA events) under torch.profiler: device busy share, top
+     kernels
  10. kernel times with CUDA events at every call site the paths launched
      (calls queued behind a GPU sleep, so that the host's launch time
      stays out), each site first held bit for bit to its plain version,
@@ -141,12 +156,13 @@ F32_INSTR_PER_S = 33.5e12
 
 DIT_STEPS = 100
 # the opt-ins' paths and 512^2, cut from 100 steps (the 1024^2 path from
-# the probe's 20) to keep the script's time with the servers' runs
-DIT_OPT_IN_STEPS = 20
-DIT_TWO_STEP_STEPS = 20  # the opt-ins path in two_step: ~0.3 s a step
+# the probe's 20) to keep the script's time with the servers' runs, and
+# to 10 with the training phase
+DIT_OPT_IN_STEPS = 10
+DIT_TWO_STEP_STEPS = 10  # the opt-ins path in two_step: ~0.3 s a step
 DIT_IMAGES = 32
 DIT512_IMAGES = 4  # tools/workload_probe.py dit512_probe
-DIT512_STEPS = 20
+DIT512_STEPS = 10
 PIXART_STEPS = 20
 PIXART_PROMPTS = 100  # the reference's batch (SURVEY.md, PixArt-alpha 256^2)
 CAPTION_TOKENS = 120
@@ -167,11 +183,20 @@ T5_PROMPTS = 4
 CLIP_TOKENS = 77
 ACCURACY_SAMPLES = 10
 ACCURACY_STEPS = 2
+# the training phase: DiT-XL/2 at 32 latents a card (the official DiT
+# train.py's global batch 256 over 8 GPUs), DeiT-small at 64 images (DeiT
+# main.py's per-GPU default); one warm-up step, then TRAIN_TIMED_STEPS timed
+TRAIN_DIT_BATCH = 32
+TRAIN_DEIT_BATCH = 64
+TRAIN_TIMED_STEPS = 2
 DEIT_BATCH = 100  # tools/workload_probe.py deit_probe
 DEIT_BATCHES = 10
 DEIT_TOKENS = 197  # 14 x 14 patches and the cls token
 EMULATION_BATCHES = 2  # the ref engine's and "gather"'s DeiT runs
 EMULATION_STEPS = 2  # the ref engine's DiT and PixArt runs
+# the ref engine's DiT run, cut from the main path's 32 images (a step at
+# 64 rows takes ~19 s) with the training phase
+EMULATION_DIT_IMAGES = 8
 # (model, predictor, k): tools/workload_probe.py:127-131
 DEIT_POINTS = (("deit_tiny_patch16_224", "ex_pred", 80),
                ("deit_small_patch16_224", "ex_pred", 60),
@@ -658,6 +683,323 @@ def endtask(dev, smi, pmodel, pix_q, pix_per_fwd, dit_latents, dit_per_fwd,
                 T5_PROMPTS))
         if rep["samples"] != T5_PROMPTS or not np.isfinite(rep["fid"]):
             fail(f"accuracy pixart: {rep}")
+    return stats
+
+
+def training(dev, smi, run_path, profile, stamp):
+    """Phase 8t, quantization-aware training (``workloads/dit_train.py``,
+    ``workloads/deit_train.py``): the forward through K1 and K2, the
+    backward as the JAX package's custom VJPs in plain torch (the
+    surrogate's rematerialized forward launches K1 at its PV or score
+    product).  1. the reference torch trajectory golden on the card;
+    2. DiT-XL/2 256^2 at full width and depth; 3. DeiT-small 224^2; each
+    one warm-up step (K1 and K2 held bit for bit to their plain versions
+    at one training-step call each) and TRAIN_TIMED_STEPS timed through
+    ``run_path`` (every kernel's launches per step checked), every loss and
+    gradient finite; 4. a tiny training step on the card against itself on
+    the CPU; and one DiT-XL/2 step under the profiler, with the forward /
+    backward / optimizer split from the pieces timed alone.  Returns the
+    phase's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mx_quantization_tpu_torch import attention
+    from mx_quantization_tpu_torch.data.datasets import latent_npz_dataset
+    from mx_quantization_tpu_torch.diffusion import create_diffusion
+    from mx_quantization_tpu_torch.models import vae
+    from mx_quantization_tpu_torch.models.dit import (DiT, DiT_models,
+                                                      DiTConfig,
+                                                      DiTQuantConfig,
+                                                      dit_forward, init_dit)
+    from mx_quantization_tpu_torch.models.vit import (VIT_CONFIGS,
+                                                      VitConfig,
+                                                      VitQuantConfig,
+                                                      init_vit, vit_forward)
+    from mx_quantization_tpu_torch.ops.kernels import quantize as k1mod
+    from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
+    from mx_quantization_tpu_torch.specs import finalize_mx_specs
+    from mx_quantization_tpu_torch.utils.checkpoint import \
+        load_dit_checkpoint
+    from mx_quantization_tpu_torch.workloads import deit_train, dit_train
+    from mx_quantization_tpu_torch.workloads.deit import default_mx_specs
+    from mx_quantization_tpu_torch.workloads.dit import dit_mx_specs
+    K1, K2 = "mx_quantize", "fused_topk_attention_qkv"
+    root = os.path.dirname(os.path.abspath(__file__))
+    gold = os.path.join(root, "tests", "golden")
+    stats = {}
+    diffusion = create_diffusion(None)
+    print(f"[train] {smi}", flush=True)
+
+    def finite_grads(label, tensors):
+        """Every gradient finite, and some nonzero."""
+        grads = [p.grad for p in tensors]
+        if any(g is None or not torch.isfinite(g).all() for g in grads):
+            fail(f"{label}: a gradient is missing or not finite")
+        nonzero = sum(int(g.count_nonzero() > 0) for g in grads)
+        if nonzero == 0:
+            fail(f"{label}: every gradient is zero")
+        print(f"[train] {label}: {len(grads)} gradients finite, "
+              f"{nonzero} nonzero", flush=True)
+
+    def warm_up_held(label, fn):
+        """Run ``fn`` (a warm-up step) with K1's first call on a 4-D
+        tensor (the surrogate's product operand) and K2's first call each
+        also run through its plain version on the same input and compared
+        bit for bit.  The kernels count on the names they are bound to, so
+        the stand-ins carry counters too (the warm-up's counts are not
+        read)."""
+        held = {}
+
+        def holding(name, kernel, plain, pick):
+            def call(*a, **kw):
+                out = kernel(*a, **kw)
+                if name not in held and pick(a[0]):
+                    held[name] = (tuple(a[0].shape),
+                                  torch.equal(out, plain(*a, **kw)))
+                return out
+            call.launches, call.sites = 0, collections.Counter()
+            return call
+        saved = (k1mod.mx_quantize, attention.fused_topk_attention_qkv)
+        k1mod.mx_quantize = holding(K1, saved[0], k1mod.mx_quantize_ref,
+                                    lambda x: x.dim() == 4)
+        attention.fused_topk_attention_qkv = holding(
+            K2, saved[1], ta.fused_topk_attention_qkv_ref, lambda x: True)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            k1mod.mx_quantize, attention.fused_topk_attention_qkv = saved
+        for name in (K1, K2):
+            if name not in held or not held[name][1]:
+                fail(f"{label}: {name} at a training-step call "
+                     f"{held.get(name)} differs from its plain version")
+            print(f"[train] {label}: {name} at the training step's "
+                  f"{held[name][0]} bit-equal to its plain version",
+                  flush=True)
+        return out
+
+    # 1. the trajectory golden (tests/test_train_trajectory_golden.py's
+    # bounds): 4 SGD steps at lr 1e-3, MXINT8, bfloat 16, quantize_backprop,
+    # k = 8, block 1 excluded, on the emulation engine (no kernel)
+    golden = np.load(os.path.join(gold, "train_traj.npz"))
+    gcfg = DiTConfig(input_size=8, hidden_size=64, depth=2, num_heads=2,
+                     num_classes=10, class_dropout_prob=0.0)
+    gmodel = DiT(gcfg, dev)
+    gmodel.load_state_dict(load_dit_checkpoint(
+        os.path.join(gold, "train_sd.pt"), depth=2))
+    gspecs = finalize_mx_specs(dict(
+        w_elem_format="int8", a_elem_format="int8", scale_bits=8,
+        shared_exp_method="max", block_size=32, bfloat=16, fp=0,
+        round="nearest", mx_flush_fp32_subnorms=False,
+        quantize_backprop=True))
+    gq = DiTQuantConfig(mx_specs=gspecs, mx_quant=True, top_k=True, k=8,
+                        ex_pred=True, exclude_blocks=(1,))
+    opt = torch.optim.SGD(dit_train.trainable_tensors(gmodel), lr=1e-3)
+    got = []
+    for s in range(4):
+        x0, y, t, noise = (torch.from_numpy(golden[f"s{s}_{k}"]).to(dev)
+                           for k in ("x0", "y", "t", "noise"))
+        terms = diffusion.training_losses(
+            lambda xt, tt, y: dit_forward(gmodel, xt, tt, y, gq), x0, t,
+            model_kwargs={"y": y}, noise=noise)
+        loss = terms["loss"].mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        got.append([loss.item(), terms["mse"].mean().item(),
+                    terms["vb"].mean().item()])
+    want = [golden["losses"], golden["mses"], golden["vbs"]]
+    rel = [[abs(got[s][i] / want[i][s] - 1) for i in range(3)]
+           for s in range(4)]
+    print(f"[train] trajectory golden on the card: losses "
+          f"{[g[0] for g in got]} against {list(golden['losses'])}; "
+          f"relative differences {rel}", flush=True)
+    if not (rel[0][0] <= 2e-4 and rel[0][1] <= 2e-4 and rel[0][2] <= 2e-3
+            and all(r[0] <= 2e-2 for r in rel[1:])
+            and got[0][0] > got[-1][0]):
+        fail("the trajectory golden on the card is off its bounds")
+    stats["trajectory_golden"] = dict(losses=[g[0] for g in got],
+                                      rel_err=[r[0] for r in rel])
+    stamp("training: golden done")
+    del gmodel, opt
+
+    # 4. a tiny training step on the card against itself on the CPU:
+    # depth 2, hidden 64, the same weights and inputs; K1 and K2 on the
+    # card, their plain versions on the CPU.  The f32 sums add in other
+    # orders, which can move an MX grid point: the loss within 1e-5, each
+    # gradient within one bf16 step (2^-7) plus 1e-6 on 99% of its elements
+    tcfg = DiTConfig(input_size=8, hidden_size=64, depth=2, num_heads=2,
+                     num_classes=10)
+    tq = DiTQuantConfig(mx_specs=dit_mx_specs().replace(
+        quantize_backprop=True), mx_quant=True, top_k=True, k=6,
+        exclude_blocks=(1,), topk_key_bits=8)
+    gc = torch.Generator().manual_seed(7)
+    x0, noise = (torch.randn(2, 4, 8, 8, generator=gc) for _ in range(2))
+    y, t = torch.tensor([1, 7]), torch.tensor([0, 637])
+    res = []
+    for d in ("cpu", dev):
+        m = init_dit(tcfg, torch.Generator().manual_seed(0), d,
+                     randomize_all=True)
+        tensors = dit_train.trainable_tensors(m)
+        loss = diffusion.training_losses(
+            lambda xt, tt, y: dit_forward(m, xt, tt, y, tq), x0.to(d),
+            t.to(d), model_kwargs={"y": y.to(d)},
+            noise=noise.to(d))["loss"].mean()
+        loss.backward()
+        res.append((loss.item(), [p.grad.cpu() for p in tensors]))
+    (lc, gcpu), (ld, gdev) = res
+    shares = [torch.isclose(a, b, rtol=2.0 ** -7, atol=1e-6).float().mean()
+              .item() for a, b in zip(gdev, gcpu)]
+    print(f"[train] tiny step, card against CPU: loss {ld:.7g} against "
+          f"{lc:.7g}; gradients within one bf16 step on at least "
+          f"{min(shares):.4f} of each tensor's elements", flush=True)
+    if not (abs(ld / lc - 1) <= 1e-5 and min(shares) >= 0.99
+            and all(torch.isfinite(g).all() for g in gdev)):
+        fail("the tiny training step on the card is off the CPU's")
+    stats["tiny_card_vs_cpu"] = dict(loss_rel=abs(ld / lc - 1),
+                                     min_share=min(shares))
+
+    # 2. DiT-XL/2 256^2 quantization-aware training: random weights from a
+    # seed, MXINT8 as dit_mx_specs() with quantize_backprop, the fused
+    # engine, exact tier, ex_pred k = 154, key_bits 8, block 27 dense; f32
+    # activations; batch 32 a card (the DiT train.py's global 256 over 8);
+    # synthetic 256^2 images through the VAE into an npz read back by
+    # latent_npz_dataset
+    cfg = DiT_models["DiT-XL/2"](input_size=32)
+    n = TRAIN_DIT_BATCH * (TRAIN_TIMED_STEPS + 2)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vm = vae.init_vae(vae.VaeConfig(), torch.Generator(device=dev)
+                      .manual_seed(3), dev)
+    imgs = torch.rand(n, 3, 256, 256, generator=gen, device=dev) * 2 - 1
+    lat = torch.cat([vae.encode_images(vm, imgs[i:i + 16], generator=gen)
+                     for i in range(0, n, 16)])
+    labels = torch.randint(0, cfg.num_classes, (n,), generator=gen,
+                           device=dev)
+    del vm, imgs
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "latents.npz")
+        np.savez(path, latents=lat.cpu().numpy(),
+                 labels=labels.cpu().numpy())
+        np.random.seed(0)
+        data = latent_npz_dataset(path, TRAIN_DIT_BATCH)
+        batches = [tuple(torch.from_numpy(a).to(dev) for a in next(data))
+                   for _ in range(TRAIN_TIMED_STEPS + 2)]
+    if not all(torch.isfinite(b[0]).all() for b in batches):
+        fail("DiT training: the VAE latents are not finite")
+    print(f"[train] DiT-XL/2: {n} synthetic 256^2 images through the VAE, "
+          f"latent std {lat.std().item():.4g}, batches of "
+          f"{TRAIN_DIT_BATCH} from latent_npz_dataset", flush=True)
+    del lat
+    t0 = time.perf_counter()
+    model = init_dit(cfg, torch.Generator().manual_seed(0), dev,
+                     randomize_all=True)
+    qcfg = DiTQuantConfig(mx_specs=dit_mx_specs().replace(
+        quantize_backprop=True), mx_quant=True, top_k=True, k=154,
+        ex_pred=True, exclude_blocks=(27,), topk_key_bits=8)
+    tensors = dit_train.trainable_tensors(model)
+    ema = [p.detach().clone() for p in tensors]
+    opt = torch.optim.AdamW(tensors, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.0)
+    step = dit_train.make_train_step(model, ema, qcfg, diffusion, opt)
+    tgen = torch.Generator(device=dev).manual_seed(12)
+    print(f"[train] DiT-XL/2 random weights, optimizer and EMA in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def dit_steps(bs):
+        losses = []
+        for x0, y in bs:
+            t, noise, _ = dit_train.draw_timesteps_and_noise(
+                tgen, x0, diffusion.num_timesteps)
+            losses.append(step(x0, y, t, noise))
+        return torch.stack(losses)
+
+    # per step: the forward's K1 in front of the 4 quantized linears of
+    # each block and the final layer's 2, the surrogate's K1 at each
+    # block's PV product (the (B, 16, 256, 256) probabilities; its score
+    # product's q is 72 wide, no whole blocks, so plain torch); K2 in
+    # every block (block 27 dense)
+    depth = cfg.depth
+    per_step = {K1: 5 * depth + 2, K2: depth}
+    _, warm_ms = event_ms(lambda: warm_up_held(
+        "DiT-XL/2 QAT", lambda: dit_steps(batches[:1])))
+    losses, step_ms = event_ms(lambda: run_path(
+        "DiT-XL/2 256 QAT train", "exact", TRAIN_TIMED_STEPS, per_step,
+        TRAIN_DIT_BATCH * TRAIN_TIMED_STEPS,
+        lambda: dit_steps(batches[1:1 + TRAIN_TIMED_STEPS]), unit="images"))
+    step_ms /= TRAIN_TIMED_STEPS
+    if not torch.isfinite(losses).all():
+        fail(f"DiT training: losses {losses.tolist()} not finite")
+    finite_grads("DiT-XL/2 QAT", tensors)
+    print(f"[train] DiT-XL/2 QAT: warm-up step {warm_ms:.0f} ms, losses "
+          f"{losses.tolist()}", flush=True)
+    stats["dit_xl2_256"] = dict(batch=TRAIN_DIT_BATCH, warm_ms=warm_ms,
+                                losses=losses.tolist(), per_step=per_step)
+    stamp("training: DiT-XL/2 steps done")
+
+    # 9. one DiT-XL/2 step under the profiler: the port's own step.  The
+    # forward / backward / optimizer split: CUDA events around a forward
+    # alone (its loss, the graph built and then dropped) and around the
+    # optimizer + EMA alone (on the profiled step's gradients); the
+    # backward is the rest of the timed steps' mean
+    x0, y = batches[-1]
+    t, noise, _ = dit_train.draw_timesteps_and_noise(
+        tgen, x0, diffusion.num_timesteps)
+    profile("DiT-XL/2 256 QAT train step", lambda: step(x0, y, t, noise), 1)
+    _, fwd = event_ms(lambda: diffusion.training_losses(
+        lambda xt, tt, y: dit_forward(model, xt, tt, y, qcfg), x0, t,
+        model_kwargs={"y": y}, noise=noise)["loss"].mean())
+    _, upd = event_ms(lambda: (opt.step(),
+                               dit_train.update_ema(ema, tensors)))
+    bwd = step_ms - fwd - upd
+    print(f"[train] DiT-XL/2 QAT step split: step {step_ms:.1f} ms (timed "
+          f"steps' mean), forward {fwd:.1f} ms, optimizer + EMA {upd:.1f} "
+          f"ms, so backward {bwd:.1f} ms ({bwd / step_ms:.1%})", flush=True)
+    stats["dit_xl2_256"].update(step_ms=step_ms, forward_ms=fwd,
+                                backward_ms=bwd, optimizer_ms=upd)
+    stamp("training: DiT-XL/2 profile done")
+    del model, ema, opt, tensors, step, batches
+
+    # 3. DeiT-small 224^2: DeiT's specs with quantize_backprop, ex_pred
+    # k = 60, batch 64 (DeiT main.py's per-GPU default), synthetic images
+    vcfg = VIT_CONFIGS["deit_small_patch16_224"]
+    vmodel = init_vit(vcfg, torch.Generator().manual_seed(0), dev)
+    vq = VitQuantConfig(mx_specs=default_mx_specs().replace(
+        quantize_backprop=True), mx_quant=True, top_k=True, k=60,
+        pred_mode="ex_pred")
+    vmodel.requires_grad_(True)
+    vt = list(vmodel.parameters())
+    vema = [p.detach().clone() for p in vt]
+    vopt = torch.optim.AdamW(vt, lr=5e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.05)
+    steps = TRAIN_TIMED_STEPS + 1
+    vstep = deit_train.make_train_step(vmodel, vema, vq, vopt, 5e-4, steps)
+    vbatches = [(torch.randn(TRAIN_DEIT_BATCH, 3, 224, 224, generator=gen,
+                             device=dev),
+                 torch.randint(0, 1000, (TRAIN_DEIT_BATCH,), generator=gen,
+                               device=dev)) for _ in range(steps)]
+
+    def deit_steps(first, bs):
+        return torch.stack([vstep(first + i, x, y)
+                            for i, (x, y) in enumerate(bs)])
+    # per step: K1 in front of the 4 quantized linears of each block and at
+    # the surrogate's score product (q, 64 wide; its PV operand is 197
+    # wide, no whole blocks); K2 in every block (block 11 dense)
+    vper = {K1: 5 * vcfg.depth, K2: vcfg.depth}
+    _, vwarm = event_ms(lambda: warm_up_held(
+        "DeiT-small QAT", lambda: deit_steps(0, vbatches[:1])))
+    vlosses = run_path("DeiT-small QAT train", "exact", TRAIN_TIMED_STEPS,
+                       vper, TRAIN_DEIT_BATCH * TRAIN_TIMED_STEPS,
+                       lambda: deit_steps(1, vbatches[1:]))
+    if not torch.isfinite(vlosses).all():
+        fail(f"DeiT training: losses {vlosses.tolist()} not finite")
+    finite_grads("DeiT-small QAT", vt)
+    print(f"[train] DeiT-small QAT: warm-up step {vwarm:.0f} ms, losses "
+          f"{vlosses.tolist()}", flush=True)
+    stats["deit_small_224"] = dict(batch=TRAIN_DEIT_BATCH, warm_ms=vwarm,
+                                   losses=vlosses.tolist(), per_step=vper)
+    del vmodel, vema, vopt, vt, vbatches
+    torch.cuda.empty_cache()
     return stats
 
 
@@ -1535,24 +1877,34 @@ def main():
     del z, step_noise
 
     def profile(label, fn, steps):
+        """``fn`` (``steps`` steps) under the profiler: wall, device busy,
+        top kernels.  It records the device alone and sums the profiler's
+        raw device events by name (a training step launches ~300,000
+        kernels; building ``key_averages``' per-event objects for them took
+        ~90 s, and ~250 s with the host's events)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         torch.cuda.synchronize()
-        with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kern) / (1e3 * steps)
-        print(f"[profile] {label} per serving step (profiled): wall "
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and \
+                    not e.is_user_annotation():
+                acc = by_name[e.name()]
+                acc[0] += e.duration_ns() / 1e3  # us
+                acc[1] += 1
+        kern = [(k, us, n) for k, (us, n) in by_name.items()]
+        busy_ms = sum(us for _, us, _ in kern) / (1e3 * steps)
+        print(f"[profile] {label} per step (profiled): wall "
               f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
               f"({busy_ms / wall_ms:.1%})")
-        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
-            print(f"[profile] {label} {e.self_device_time_total / (1e3 * steps):9.2f}"
-                  f" ms/step {e.count // steps:6d}x  {e.key[:90]}")
+        for key, us, n in sorted(kern, key=lambda e: -e[1])[:16]:
+            print(f"[profile] {label} {us / (1e3 * steps):9.2f}"
+                  f" ms/step {n // steps:6d}x  {key[:90]}")
 
     def profile_server(label, srv, make_request):
         """Two engine steps of a drained server's full pool under the
@@ -1689,16 +2041,20 @@ def main():
 
     # 7. DiT-XL/2 256^2 on the emulation engine (dit_mx_specs("ref"), the
     # JAX CLI's --engine ref: f32 activations, weights quantized on the
-    # fly), 32 images with CFG, exact tier: no kernel may launch
+    # fly), EMULATION_DIT_IMAGES images with CFG, exact tier: no kernel
+    # may launch
     model = init_dit(cfg, torch.Generator().manual_seed(0), dev,
                      randomize_all=True)
     qc = DiTQuantConfig(mx_specs=dit_mx_specs("ref"), mx_quant=True,
                         top_k=True, k=154, ex_pred=True,
                         exclude_blocks=(27,))
-    lat = run_path("DiT-XL/2 ref", "exact", EMULATION_STEPS, {}, DIT_IMAGES,
-                   lambda: sample_dit(model, qc, labels, gen,
+    lat = run_path("DiT-XL/2 ref", "exact", EMULATION_STEPS, {},
+                   EMULATION_DIT_IMAGES,
+                   lambda: sample_dit(model, qc,
+                                      labels[:EMULATION_DIT_IMAGES], gen,
                                       num_steps=EMULATION_STEPS, device=dev))
-    if lat.shape != (DIT_IMAGES, 4, 32, 32) or not torch.isfinite(lat).all():
+    if lat.shape != (EMULATION_DIT_IMAGES, 4, 32, 32) or \
+            not torch.isfinite(lat).all():
         fail("DiT ref: latents not finite / wrong shape")
     print(f"[slice] DiT-XL/2 ref exact: latent std "
           f"{lat.float().std().item():.4g}", flush=True)
@@ -1782,6 +2138,12 @@ def main():
                             check_k1)
     del dit_latents
     stamp("end-task phase done")
+
+    # 8t. quantization-aware training: the trajectory golden, DiT-XL/2
+    # 256^2 and DeiT-small at full width, a tiny step against the CPU, one
+    # DiT step profiled
+    training_stats = training(dev, smi, run_path, profile, stamp)
+    stamp("training phase done")
 
     # 8s. the PixArt server at its operating point: the same weights
     # prequantized to bf16, bf16 activations at 64 model rows, key_bits 8,
@@ -2328,7 +2690,7 @@ def main():
     ]
     stamp("kernel times done")
     print(json.dumps({"tiers": tiers, "servers": servers,
-                      "endtask": endtask_stats,
+                      "endtask": endtask_stats, "training": training_stats,
                       "launches_by_path": path_launches}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Quantized attention with approximated top-k pruning (port of the JAX
 package's ``attention.py``: ``TopKAttentionConfig``, ``topk_attention``,
-``fused_qkv_eligible`` and ``fused_qkv_topk_attention``; forward only).
+``fused_qkv_eligible`` and ``fused_qkv_topk_attention``).
 
 The flow is the reference's
   true_scores = MX(q) @ MX(k)^T * scale (+ bias),
@@ -24,6 +24,16 @@ fused fallback masks with an exact k-th value (``_sparse_softmax_threshold``);
 "gather" multiplies the selected V rows only.  The serving contract is a
 kernel tier: where a config leaves the kernels it raises ``ValueError``, as
 JAX does.
+
+The kernels have no backward, in JAX as here.  Where autograd records, each
+kernel entry is a ``torch.autograd.Function`` whose backward rematerializes
+the XLA path's equivalent (``_xla_topk_dense``, the threshold mask) on the
+saved inputs and differentiates it, as JAX's custom VJPs do; its products
+are the quantized ``matmul``'s, so their MX backward applies.  The
+selector feeds only comparisons and carries no gradient (JAX's cotangent
+there is zero), so it is computed without autograd.  The "gather" path has
+no backward (JAX's gradient through its quantizers is zero), so it raises
+where autograd records.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 from .formats import format_params
 from .ops.elemwise import quantize_elemwise_op
 from .ops.fastquant import fused_eligible
+from .ops.kernels import records_grad
 from .ops.kernels.topk_attention import (MAX_TILED_KEYS, MAX_TOKENS,
                                          QKV_PRED_MODES, fused_topk_attention,
                                          fused_topk_attention_qkv)
@@ -130,9 +141,17 @@ def fused_qkv_topk_attention(qkv: torch.Tensor, num_heads: int, scale: float,
     """(B, N, 3*H*D) fused-qkv activations -> (B, N, H*D).  A cfg with
     top_k=False (an excluded block or timestep) runs dense MX attention:
     it is normalized to k = N so the kernel takes its masked-softmax
-    branch."""
+    branch.  Where autograd records, the backward is the surrogate's
+    (``_FusedQkvAttention``)."""
     if not cfg.top_k:
         cfg = cfg._replace(top_k=True, approx_flag=False, k=int(qkv.shape[1]))
+    if records_grad(qkv):
+        return _FusedQkvAttention.apply(qkv, num_heads, scale, mx_specs, cfg)
+    return _qkv_kernel(qkv, num_heads, scale, mx_specs, cfg)
+
+
+def _qkv_kernel(qkv, num_heads, scale, mx_specs, cfg) -> torch.Tensor:
+    """The fused qkv kernel entry (K2)."""
     return fused_topk_attention_qkv(
         qkv, num_heads, k=cfg.k, scale=scale,
         block_size=mx_specs.block_size,
@@ -214,11 +233,14 @@ def _true_scores(q, k, scale, mx_specs, bias):
 
 def _selector(q, k, true_scores, mx_specs, cfg, bias, orthogonal_matrix):
     """The scores the top-k ranks: the predictor's (plus the bias), or the
-    true scores without approx_flag."""
+    true scores without approx_flag; without autograd, as they feed only
+    comparisons."""
     if not cfg.approx_flag:
-        return true_scores
-    pred = predict_scores(q, k, mx_specs, cfg.pred_mode, orthogonal_matrix)
-    return pred if bias is None else pred + bias
+        return true_scores.detach()
+    with torch.no_grad():
+        pred = predict_scores(q, k, mx_specs, cfg.pred_mode,
+                              orthogonal_matrix)
+        return pred if bias is None else pred + bias
 
 
 def _xla_topk_dense(q, k, v, scale, mx_specs, cfg, bias=None,
@@ -230,6 +252,77 @@ def _xla_topk_dense(q, k, v, scale, mx_specs, cfg, bias=None,
                          orthogonal_matrix)
     attn = _sparse_softmax_threshold(true_scores, selector, cfg.k)
     return matmul(attn, v, mx_specs=mx_specs, mode_config="aa")
+
+
+def _surrogate_vjp(ctx, fn, g):
+    """The gradients of ``fn`` at the saved inputs against the output
+    gradient ``g``: JAX's ``jax.vjp`` of the surrogate, for the inputs that
+    need one (None for the rest)."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        xs = [None if t is None else t.detach().requires_grad_(n)
+              for t, n in zip(saved, need)]
+        out = fn(*xs)
+        wrt = [x for x, n in zip(xs, need) if n]
+        grads = iter(torch.autograd.grad(out, wrt, g.to(out.dtype),
+                                         allow_unused=True))
+    return [next(grads) if n else None for n in need]
+
+
+class _FusedQkvAttention(torch.autograd.Function):
+    """K2's forward; the backward differentiates ``_xla_topk_dense`` on the
+    qkv activations split as JAX's ``_fused_qkv_ad_bwd`` splits them."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, mx_specs, cfg):
+        ctx.save_for_backward(qkv)
+        ctx.args = (num_heads, scale, mx_specs, cfg)
+        return _qkv_kernel(qkv, num_heads, scale, mx_specs, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        H, scale, mx_specs, cfg = ctx.args
+
+        def f(qkv):
+            B, N, F = qkv.shape
+            D = F // (3 * H)
+            q, k, v = (t.contiguous() for t in
+                       qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4))
+            out = _xla_topk_dense(q, k, v, scale, mx_specs, cfg)
+            return out.transpose(1, 2).reshape(B, N, H * D)
+
+        return (*_surrogate_vjp(ctx, f, g), None, None, None, None)
+
+
+class _SplitKernelAttention(torch.autograd.Function):
+    """K3 / K4's forward; the backward differentiates ``_xla_topk_dense``
+    with the same bias and projection (JAX ``_fused_ad_bwd``).  ELSA's
+    projection gets a zero gradient, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, proj, scale, mx_specs, cfg):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.args = (proj, scale, mx_specs, cfg)
+        return _split_kernel(q, k, v, bias, scale, mx_specs, cfg, proj)
+
+    @staticmethod
+    def backward(ctx, g):
+        proj, scale, mx_specs, cfg = ctx.args
+        grads = _surrogate_vjp(
+            ctx, lambda q, k, v, bias: _xla_topk_dense(
+                q, k, v, scale, mx_specs, cfg, bias, proj), g)
+        gproj = torch.zeros_like(proj) if ctx.needs_input_grad[4] else None
+        return (*grads, gproj, None, None, None)
+
+
+def _split_entry(q, k, v, bias, scale, mx_specs, cfg, proj=None):
+    """The split kernel entry, with the surrogate's backward where autograd
+    records."""
+    if records_grad(q, k, v, bias, proj):
+        return _SplitKernelAttention.apply(q, k, v, bias, proj, scale,
+                                           mx_specs, cfg)
+    return _split_kernel(q, k, v, bias, scale, mx_specs, cfg, proj)
 
 
 def _gathered_sparse_attention(true_scores, idx, v, mx_specs):
@@ -280,7 +373,7 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if (_kernel_specs_ok(mx_specs, cfg) and bias_ok
                 and S <= MAX_TILED_KEYS):
             dcfg = cfg._replace(top_k=True, approx_flag=False, k=S)
-            return _split_kernel(q, k, v, bias, scale, mx_specs, dcfg), None
+            return _split_entry(q, k, v, bias, scale, mx_specs, dcfg), None
         if cfg.contract == "serving":
             raise ValueError(
                 "contract='serving' is a fused-kernel tier; this dense "
@@ -300,7 +393,7 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if cfg.approx_flag and cfg.pred_mode == "ELSA":
             proj = (orthogonal_matrix if orthogonal_matrix is not None else
                     _structured_matrix(int(q.shape[-1]), q.device))
-        return _split_kernel(q, k, v, bias, scale, mx_specs, cfg, proj), None
+        return _split_entry(q, k, v, bias, scale, mx_specs, cfg, proj), None
     if cfg.contract == "serving":
         raise ValueError(
             "contract='serving' is a fused-kernel tier; this config falls "
@@ -322,6 +415,11 @@ def topk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             attn = _sparse_softmax_scatter(true_scores, idx)
         out = matmul(attn, v, mx_specs=mx_specs, mode_config="aa")
     elif cfg.sparse_impl == "gather":
+        if records_grad(q, k, v, bias):
+            raise NotImplementedError(
+                "sparse_impl='gather' has no backward (the JAX package's "
+                "gradient through its quantizers is zero); train with "
+                "sparse_impl='dense'")
         idx = top_k_indices(selector, cfg.k)
         out = _gathered_sparse_attention(true_scores, idx, v, mx_specs)
     else:

@@ -1,1 +1,2 @@
-"""Input pipelines (slice 7: the ImageNet validation folder)."""
+"""Input pipelines: the ImageNet validation folder, CIFAR and latent-npz
+datasets, repeated-augmentation sampling and 3-Augment."""

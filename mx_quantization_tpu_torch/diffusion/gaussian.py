@@ -1,8 +1,7 @@
-"""Gaussian diffusion for sampling: the linear and squaredcos beta
-schedules, timestep respacing, the forward process and posterior, and the
-ancestral DDPM and DDIM steps and loops (port of the JAX package's
-``diffusion/gaussian.py``, sampling part; ``training_losses`` belongs to
-the training slice, ROADMAP.md).
+"""Gaussian diffusion: the linear and squaredcos beta schedules, timestep
+respacing, the forward process and posterior, the ancestral DDPM and DDIM
+steps and loops, and the training losses (port of the JAX package's
+``diffusion/gaussian.py``).
 
 Coefficient tables are float64 numpy arrays; each step gathers them in
 float32 from a copy that goes onto a device once and stays cached there,
@@ -260,6 +259,72 @@ class GaussianDiffusion:
                 lambda x, i, z: self.ddim_sample_step(
                     model, x, i, z, eta, clip_denoised, model_kwargs),
                 shape, generator, noise, step_noise)
+
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _discretized_gaussian_log_likelihood(x, means, log_scales):
+        """Log-likelihood of a gaussian discretized to the +-1/255 image
+        grid (reference diffusion_utils.py:62-88, tanh-approximated normal
+        CDF :39-44)."""
+        def cdf(v):
+            return 0.5 * (1.0 + torch.tanh(
+                math.sqrt(2.0 / math.pi) * (v + 0.044715 * v ** 3)))
+
+        centered = x - means
+        inv_stdv = torch.exp(-log_scales)
+        cdf_plus = cdf(inv_stdv * (centered + 1.0 / 255.0))
+        cdf_min = cdf(inv_stdv * (centered - 1.0 / 255.0))
+        log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+        log_one_minus = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+        log_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+        return torch.where(x < -0.999, log_cdf_plus,
+                           torch.where(x > 0.999, log_one_minus, log_delta))
+
+    def training_losses(self, model: Callable, x0: torch.Tensor,
+                        t: torch.Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        model_kwargs=None,
+                        noise: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """MSE(eps) + VB loss terms per sample (reference :717-784): the VB
+        term takes the model's variance with the mean's eps detached, and
+        at t == 0 it is the decoder NLL of the discretized gaussian.  The
+        noise is ``noise`` if given, else one standard-normal draw of x0's
+        shape from ``generator``, on the generator's device."""
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass a generator or noise")
+            noise = torch.randn(x0.shape, generator=generator,
+                                device=generator.device, dtype=x0.dtype)
+        xt = self.q_sample(x0, t, noise)
+        out = model(xt, self.model_t(t).to(torch.float32),
+                    **(model_kwargs or {}))
+
+        terms = {}
+        if self.learn_sigma:
+            eps, v = out.chunk(2, dim=1)
+            # the vb term with the mean frozen (no gradient through eps)
+            frozen = torch.cat([eps.detach(), v], dim=1)
+            mean, log_var, _ = self.p_mean_variance(frozen, xt, t)
+            true_mean = self.q_posterior_mean(x0, xt, t)
+            true_log_var = self._gather("posterior_log_variance_clipped", t,
+                                        xt.dim())
+            kl = 0.5 * (-1.0 + log_var - true_log_var +
+                        torch.exp(true_log_var - log_var) +
+                        (true_mean - mean) ** 2 * torch.exp(-log_var))
+            axes = tuple(range(1, kl.dim()))
+            vb_kl = kl.mean(axes) / math.log(2.0)
+            nll = -self._discretized_gaussian_log_likelihood(
+                x0, mean, 0.5 * log_var)
+            vb_nll = nll.mean(axes) / math.log(2.0)
+            terms["vb"] = torch.where(t == 0, vb_nll, vb_kl)
+        else:
+            eps = out
+        terms["mse"] = ((noise - eps) ** 2).mean(tuple(range(1, eps.dim())))
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms \
+            else terms["mse"]
+        return terms
 
 
 def create_diffusion(timestep_respacing: Optional[str] = None,

@@ -1,11 +1,14 @@
 """DiT (Diffusion Transformer) with MX quantization and top-k attention
-(port of the JAX package's ``models/dit.py``, forward only).
+(port of the JAX package's ``models/dit.py``).
 
 The parameters live in a ``DiT`` module whose names follow the JAX
 parameter tree (``blocks.<i>.attn.qkv.weight``, ``final_layer.adaLN.bias``,
 ...); the blocks are an ``nn.ModuleList`` walked by a Python loop.  The
 forward functions take the quantization plan ``DiTQuantConfig`` as an
 argument, as the JAX ones do, so one set of weights serves every plan.
+The parameters are created without ``requires_grad``; a trainer turns it
+on (``workloads/dit_train.py``), and the forward then records the JAX
+package's backward (``ops/linear.py``, ``attention.py``).
 
 Contracts kept from the reference: adaLN-Zero blocks; ``exclude_blocks``
 turns top-k and prediction off for those blocks (attention stays MX dense);
@@ -82,6 +85,10 @@ class DiTQuantConfig:
         pre-transposed and attention runs as kernel K7 (K2's math).  Both
         tiers, where N % 128 == 0 and the fused qkv entry's conditions
         hold (N <= 512, every predictor but ELSA), as in JAX.
+    The three are inference-only: their kernels have no backward, and
+    where autograd records a call of one it raises (JAX raises at K5;
+    through K7 its gradient is silently zero; K6 is off under
+    ``quantize_backprop``, as in JAX).
     """
     mx_specs: Optional[MxSpecs] = None
     mx_quant: bool = False
@@ -135,11 +142,15 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
 
 def timestep_embedding(t: torch.Tensor, dim: int,
                        max_period: int = 10000) -> torch.Tensor:
-    """Sinusoidal timestep embedding (reference models.py:45-64)."""
+    """Sinusoidal timestep embedding (reference models.py:45-64).  The
+    frequencies' exp is taken in float64 and rounded to f32 once, so that
+    every device gets the same table: f32 exps differ in their last bit
+    between the card and the CPU, and at t ~ 1000 one ulp of a frequency
+    moves cos(t f) by 6e-5."""
     half = dim // 2
-    freqs = torch.exp(-math.log(max_period) *
-                      torch.arange(half, dtype=torch.float32,
-                                   device=t.device) / half)
+    e = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=t.device) / half
+    freqs = torch.exp(e.to(torch.float64)).to(torch.float32)
     args = t[:, None].to(torch.float32) * freqs[None]
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
     if dim % 2:

@@ -1,5 +1,6 @@
 """DeiT / Vision Transformer with MX quantization and top-k attention
-(port of the JAX package's ``models/vit.py``, forward only).
+(port of the JAX package's ``models/vit.py``; trained by
+``workloads/deit_train.py``, which turns ``requires_grad`` on).
 
 The parameters live in a ``ViT`` module whose names follow the JAX
 parameter tree (``patch_embed.weight``, ``blocks.<i>.attn.qkv.weight``,

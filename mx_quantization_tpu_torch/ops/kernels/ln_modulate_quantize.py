@@ -35,7 +35,7 @@ import torch
 
 from ...formats import format_params
 from ..fastquant import k5_row_sum
-from . import build
+from . import build, inference_only
 from .quantize import mx_quantize_ref
 
 SOURCE = "ln_modulate_quantize.cu"
@@ -107,6 +107,7 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
     K5 on a CUDA tensor; the plain version on a CPU tensor."""
     args = (elem_format, block_size, scale_bits, eps, out_dtype, flush,
             bfloat)
+    inference_only("K5 (ln_modulate_quantize)", x, shift, scale)
     if x.device.type == "cpu":
         return ln_modulate_quantize_ref(x, shift, scale, *args)
     if x.device.type != "cuda" or shift.device != x.device or \

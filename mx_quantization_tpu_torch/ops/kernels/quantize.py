@@ -38,6 +38,7 @@ import torch
 
 from ...formats import format_params
 from ..fastquant import bf16_round_half_away, quantize_blocks
+from . import inference_only
 
 _BLOCK_M = 32
 _BLOCK_K = 128
@@ -261,6 +262,7 @@ def gelu_quantize(x: torch.Tensor, elem_format: str = "int8",
     K6 on a CUDA tensor; the plain version on a CPU tensor."""
     args = (elem_format, block_size, scale_bits, out_dtype, flush, bfloat,
             approximate)
+    inference_only("K6 (gelu_quantize)", x)
     if x.device.type == "cpu":
         return gelu_quantize_ref(x, *args)
     M, K, grid, block_k = _check_tile_args("K6", x, block_size, out_dtype)

@@ -104,7 +104,7 @@ from ...formats import FormatParams
 from ...predictors.elsa import THETA_BIAS
 from ..fastquant import (bf16_round_half_away, lane_sum, pow2, quantize_blocks,
                          round_half_away)
-from . import build
+from . import build, inference_only
 
 SOURCE = "topk_attention_qkv.cu"
 SPLIT_SOURCE = "topk_attention_split.cu"
@@ -813,6 +813,7 @@ def fused_topk_attention_qkv_t(qk_t: torch.Tensor, v: torch.Tensor,
               pred_mode=pred_mode, key_bits=key_bits, out_dtype=out_dtype,
               bfloat=bfloat, flush=flush, ebits=ebits, emax=emax,
               max_norm=max_norm, contract=contract)
+    inference_only("K7 (fused_topk_attention_qkv_t)", qk_t, v)
     if qk_t.device.type == "cpu":
         return fused_topk_attention_qkv_t_ref(qk_t, v, num_heads, **kw)
     _check_args(pred_mode, approx, contract, key_bits, block_size)

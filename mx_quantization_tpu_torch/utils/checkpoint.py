@@ -12,11 +12,13 @@ after the JAX trees (``blocks.<i>.attn.qkv.weight``,
 loaders produce state dicts in those names and hand them to
 ``load_state_dict``.  DeiT's position table is loaded as it is: the JAX
 loader's optional bicubic resize to another patch count is not ported
-(ROADMAP.md).
+(ROADMAP.md).  ``save_params`` / ``load_params`` keep a tree of tensors
+(a trainer's state dicts) as a numpy pickle, as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict
 
 import numpy as np
@@ -198,3 +200,28 @@ def load_deit_checkpoint(path: str, depth: int = 12
                 key = f"blocks.{i}.{mod}.{leaf}"
                 out[key] = sd[key]
     return {k: v.detach().to(torch.float32) for k, v in out.items()}
+
+
+def _to_numpy(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree
+
+
+def save_params(path: str, params) -> None:
+    """Write a tree of tensors (nested dicts, lists and tuples) to ``path``
+    as a pickle of numpy arrays (the JAX package's ``save_params``)."""
+    with open(path, "wb") as f:
+        pickle.dump(_to_numpy(params), f)
+
+
+def load_params(path: str):
+    """Read back what ``save_params`` wrote: the tree with numpy arrays.
+    Unpickling runs code from the file, so load only files this program
+    wrote."""
+    with open(path, "rb") as f:
+        return pickle.load(f)

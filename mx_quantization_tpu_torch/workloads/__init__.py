@@ -1,1 +1,2 @@
-"""Workload entry points: DiT and PixArt-alpha sampling, DeiT evaluation."""
+"""Workload entry points: DiT and PixArt-alpha sampling, DeiT evaluation,
+DiT and DeiT training."""

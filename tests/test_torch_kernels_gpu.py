@@ -1033,3 +1033,80 @@ def test_server_dispatch_and_refill_do_not_sync(cuda, solver):
                       device=cuda).cpu()
     for i in range(3):
         assert torch.equal(torch.from_numpy(res[i].latent), want[i])
+
+
+# ---- training: K1 at the surrogate backward's new sites, and a
+# tiny quantization-aware training step on the card against the CPU
+
+@pytest.mark.parametrize("shape,bfloat", [((32, 16, 256, 256), 16),
+                                          ((64, 6, 197, 64), 32)])
+def test_k1_training_sites(cuda, shape, bfloat):
+    """The surrogate backward rematerializes attention through the fast
+    matmul, whose operand a takes K1: at DiT-XL/2 256^2 (batch 32) the PV
+    product's (B, H, N, N) f32 probabilities, bfloat 16; at DeiT-small
+    (batch 64) the score product's q, 64 wide, bfloat 32."""
+    x = _normal(shape, 31).to(cuda)
+    if bfloat == 16:
+        x = torch.softmax(4 * x, dim=-1)
+    got = mx_quantize(x, "int8", 32, 8, bfloat=bfloat)
+    want = mx_quantize_ref(x, "int8", 32, 8, bfloat=bfloat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("model", ["dit", "deit"])
+def test_tiny_training_step_on_card_matches_cpu(cuda, model):
+    """One quantization-aware loss and its gradients (quantize_backprop,
+    the fused engine: K1 and K2 on the card, their plain versions on the
+    CPU; the surrogate backward) on the same weights and inputs.  f32 sums
+    add in other orders on the card, which can move an MX grid point: the
+    loss within 1e-5 relative, each gradient finite and within one bf16
+    step (2^-7) plus 1e-6 on at least 99% of its elements."""
+    from mx_quantization_tpu_torch.diffusion import create_diffusion
+    from mx_quantization_tpu_torch.models.vit import (VitConfig,
+                                                      VitQuantConfig,
+                                                      init_vit, vit_forward)
+    from mx_quantization_tpu_torch.workloads.deit import default_mx_specs
+    from mx_quantization_tpu_torch.workloads.deit_train import \
+        label_smoothing_ce
+    from mx_quantization_tpu_torch.workloads.dit_train import \
+        trainable_tensors
+    res = []
+    for dev in ("cpu", cuda):
+        if model == "dit":
+            m = init_dit(DiTConfig(input_size=8, hidden_size=64, depth=2,
+                                   num_heads=2, num_classes=10),
+                         torch.Generator().manual_seed(0), dev,
+                         randomize_all=True)
+            qcfg = DiTQuantConfig(
+                mx_specs=dit_mx_specs().replace(quantize_backprop=True),
+                mx_quant=True, top_k=True, k=6, exclude_blocks=(1,),
+                topk_key_bits=8)
+            tensors = trainable_tensors(m)
+            loss = create_diffusion(None).training_losses(
+                lambda xt, tt, y: dit_forward(m, xt, tt, y, qcfg),
+                _normal((2, 4, 8, 8), 32).to(dev),
+                torch.tensor([0, 637], device=dev),
+                model_kwargs={"y": torch.tensor([1, 7], device=dev)},
+                noise=_normal((2, 4, 8, 8), 33).to(dev))["loss"].mean()
+        else:
+            m = init_vit(VitConfig(img_size=32, patch_size=8,
+                                   num_classes=10, embed_dim=128, depth=2,
+                                   num_heads=2),
+                         torch.Generator().manual_seed(0), dev)
+            qcfg = VitQuantConfig(
+                mx_specs=default_mx_specs().replace(quantize_backprop=True),
+                mx_quant=True, top_k=True, k=6)
+            m.requires_grad_(True)
+            tensors = list(m.parameters())
+            loss = label_smoothing_ce(
+                vit_forward(m, _normal((4, 3, 32, 32), 34).to(dev), qcfg),
+                torch.tensor([1, 2, 3, 4], device=dev))
+        loss.backward()
+        res.append((loss.item(), [p.grad.cpu() for p in tensors]))
+    (lc, gc), (ld, gd) = res
+    assert abs(ld / lc - 1) <= 1e-5
+    for a, b in zip(gd, gc):
+        assert torch.isfinite(a).all()
+        close = torch.isclose(a, b, rtol=2.0 ** -7, atol=1e-6)
+        assert close.float().mean() >= 0.99
