@@ -7,8 +7,9 @@ Needs one CUDA GPU (Hopper: the CUDA kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
   2. build: K2 and K7 (one source, built in six parts), K3 and K4 (one
-     source, built in five parts) and K5 from csrc/, one nvcc each, started
-     together (K1 and K6 compile through Triton's JIT)
+     source, built in five parts), K5, and K2/K7/K3/K4 at the block sizes
+     other than 32 (one source) from csrc/, one nvcc each, started together
+     (K1 and K6 compile through Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
      shapes (bf16/f32 in, bfloat 0/16), at the PixArt sites (f32 in,
      flush, bfloat 0/32) and at DeiT's five widths (100 x 197 rows, f32,
@@ -65,6 +66,22 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      qkv entry (K2 in every block, 2 steps per tier) and with ELSA (K3);
      then DiT-XL/2 512^2 (N = 1024 tokens: K4 in every block), 4 images
      with CFG (8 rows), 10 DDPM steps, serving tier then exact tier
+  7b. the MX block sizes other than 32 (K2, K7, K3 and K4 on the blocks
+     kernel, csrc/topk_attention_blocks.cu; K5 with its block a launch
+     argument; K1 and K6 likewise): each kernel against its plain version,
+     bit for bit, at blocks 8, 16, 64 and 128 at real sites (K2 at DiT's
+     site and DeiT-small's f32 site in both tiers, K7 at DiT's
+     split-emission site, K3 at PixArt-alpha 256^2's self and
+     caption-biased cross sites and at DiT's ELSA site in both tiers, K4
+     at DiT-XL/2 512^2's and, at 16 and 64, PixArt-alpha 1024^2's self
+     site, K1, K5 and K6 at DiT's sites), timed at 16 and 64; then
+     DiT-XL/2 256^2 at full width, 32 images with CFG, at blocks 16 and 64
+     in each tier (10 steps, cut from 100), the fused opt-ins at block 16
+     (serving, 10 steps), ELSA at block 64 (K3; serving, 2 steps),
+     DiT-XL/2 512^2 at block 16 (K4; serving, 2 steps) and DeiT-small at
+     block 16 (2 batches of 100), each with its launch counts asserted
+     beside the block size; then every call site those paths gave a
+     kernel, bit for bit against its plain version
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
@@ -141,6 +158,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 import collections
 import concurrent.futures
+import copy
 import dataclasses
 import json
 import os
@@ -201,6 +219,15 @@ EMULATION_DIT_IMAGES = 8
 DEIT_POINTS = (("deit_tiny_patch16_224", "ex_pred", 80),
                ("deit_small_patch16_224", "ex_pred", 60),
                ("deit_base_patch16_224", "two_step_leading_ones", 30))
+# phase 7b: the block sizes other than 32 held to the plain versions, those
+# timed (and run end to end at DiT-XL/2 256^2), and its steps and batches
+# (the paths cut from 100 steps, the ELSA and 512^2 runs to 2, to keep the
+# phase near 100 s: a DiT step at these blocks takes ~0.7-0.9 s)
+OTHER_BLOCKS = (8, 16, 64, 128)
+TIMED_BLOCKS = (16, 64)
+BLOCK_STEPS = 10
+BLOCK_SHORT_STEPS = 2
+BLOCK_DEIT_BATCHES = 2
 # K3's and K4's predictors beyond ex_pred and two_step
 NEW_MODES = ("MXINT4", "partial_Q", "partial_K", "true_ex", "threshold_ex",
              "ELSA")
@@ -1078,7 +1105,8 @@ def main():
     # ---- 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = (*ta.qkv_builds(), *ta.split_builds(),
-               (lnq.SOURCE, lnq.DEFINES))
+               (lnq.SOURCE, lnq.DEFINES),
+               (ta.BLOCKS_SOURCE, ta.BLOCK_DEFINES))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda sd: build.build(*sd), sources))
     print(f"[build] {[lib.name for lib in libs]} in "
@@ -1726,9 +1754,12 @@ def main():
     path_launches = {}
     tiers = {}
 
-    def run_path(name, contract, steps, per_fwd, units, fn, unit="images"):
+    def run_path(name, contract, steps, per_fwd, units, fn, unit="images",
+                 sinks=None):
         """Drive one tier of a slice with every count set to 0 just before
-        and read just after."""
+        and read just after; the sites and launches go to ``sinks``
+        ((sites, launches); the main paths' by default)."""
+        sites_to, launches_to = sinks or (main_sites, main_launches)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for w in wrappers.values():
@@ -1740,8 +1771,8 @@ def main():
         dt = time.perf_counter() - t0
         counts = {n: w.launches for n, w in wrappers.items()}
         for n, w in wrappers.items():
-            main_sites[n].update(w.sites)
-            main_launches[n] += counts[n]
+            sites_to[n].update(w.sites)
+            launches_to[n] += counts[n]
         path_launches[f"{name} {contract}"] = counts
         for n, c in counts.items():
             if c != per_fwd.get(n, 0) * steps:
@@ -2038,6 +2069,325 @@ def main():
     profile("DiT-XL/2 512^2", lambda: sample_dit(
         model, qc, labels512, gen, num_steps=2, device=dev), 2)
     del model
+
+    # ---- 7b. the MX block sizes other than 32: K2, K7, K3 and K4 launch
+    # the blocks kernel (csrc/topk_attention_blocks.cu), K1, K5 and K6 their
+    # own with the block a launch argument.  Each against its plain version,
+    # bit for bit, at real sites (timed at TIMED_BLOCKS); then the paths end
+    # to end, with their sites and launches kept apart from the block-32
+    # paths', and each of their sites held to the plain version
+    stamp("block sizes phase starts")
+    block_sites = {n: collections.Counter() for n in wrappers}
+    block_launches = {n: 0 for n in wrappers}
+    block_err = collections.defaultdict(float)
+    block_timed = collections.defaultdict(list)
+
+    def check_block(name, bs, site, fn, ref, bound):
+        """fn (the kernel) against ref (its plain version) bit for bit; at
+        TIMED_BLOCKS also the kernel's time, the plain version's (one call)
+        and the bound (attention_bound's or elementwise_bound's triple)."""
+        got = fn()
+        want, pms = event_ms(ref)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        block_err[name] = max(block_err[name], err)
+        if not torch.equal(got, want) or not torch.isfinite(got).all():
+            fail(f"{name} at block {bs}, {site}, differs from its plain "
+                 "version")
+        del got, want
+        line = f"[block] {name} block {bs} {site}: bit-equal"
+        if bs in TIMED_BLOCKS:
+            ms, queued = time_ms(fn, 5, warmup=1)
+            bnd, by, terms = bound
+            block_timed[name].append(dict(
+                site=site, block_size=bs, ms=ms, plain_ms=pms, bound_ms=bnd,
+                bound_by=by, queued=queued))
+            line += (f"; {ms:.4f} ms (plain {pms:.2f} ms, bound {bnd:.4f} "
+                     f"ms by {by}: { {t: round(v, 4) for t, v in terms.items()} })")
+        print(line, flush=True)
+
+    B, N, H, D = 2 * DIT_IMAGES, 256, 16, 72
+    qkv = randn(B, N, 3 * H * D, dtype=torch.bfloat16)
+    deit_qkv = randn(DEIT_BATCH, DEIT_TOKENS, 3 * 6 * 64)
+    pq, pk, pv = (randn(8, H, 256, D, scale=sc) for sc in (4.0, 4.0, 1.0))
+    ck, cv = randn(8, H, CAPTION_TOKENS, D, scale=4.0), \
+        randn(8, H, CAPTION_TOKENS, D)
+    cbias = caption_bias(8, CAPTION_TOKENS, dev)[0]
+    lq, lk, lv = (randn(2 * DIT512_IMAGES, H, 1024, D, scale=sc,
+                        dtype=torch.bfloat16) for sc in (4.0, 4.0, 1.0))
+    xq, xk, xv = (randn(2, H, 4096, D, scale=sc) for sc in (4.0, 4.0, 1.0))
+    eq, ek, ev = (randn(B, H, N, D, scale=sc, dtype=torch.bfloat16)
+                  for sc in (4.0, 4.0, 1.0))
+    k5x = randn(B, N, 1152, scale=3.0, dtype=torch.bfloat16)
+    k5s, k5h = (randn(B, 1152, scale=0.3, dtype=torch.bfloat16)
+                for _ in range(2))
+    fc2 = randn(B, N, 4608, scale=2.0, dtype=torch.bfloat16)
+    ada = randn(B, 1152)
+    dit_kw = dict(k=154, scale=D ** -0.5, key_bits=8, bfloat=16,
+                  out_dtype=torch.bfloat16)
+    for bs in OTHER_BLOCKS:
+        for contract in ("serving", "exact"):
+            kw = dict(dit_kw, contract=contract, block_size=bs)
+            check_block(K2, bs, f"DiT {(B, N, 3 * H * D)} bf16 ex_pred "
+                        f"k=154 {contract}",
+                        lambda: ta.fused_topk_attention_qkv(qkv, H, **kw),
+                        lambda: ta.fused_topk_attention_qkv_ref(qkv, H, **kw),
+                        attention_bound(B * H, N, N, D, 2, 2, 154, 8, True))
+        for contract in ("serving", "exact"):
+            kw = dict(k=60, scale=64 ** -0.5, key_bits=32, contract=contract,
+                      block_size=bs)
+            check_block(K2, bs, f"DeiT-small {tuple(deit_qkv.shape)} f32 "
+                        f"ex_pred k=60 {contract}",
+                        lambda: ta.fused_topk_attention_qkv(deit_qkv, 6,
+                                                            **kw),
+                        lambda: ta.fused_topk_attention_qkv_ref(deit_qkv, 6,
+                                                                **kw),
+                        attention_bound(DEIT_BATCH * 6, DEIT_TOKENS,
+                                        DEIT_TOKENS, 64, 4, 4, 60, 32, True))
+        Dp = -(-D // bs) * bs
+        qk = torch.nn.functional.pad(
+            qkv[..., :2 * H * D].reshape(B, N, 2, H, D), (0, Dp - D))
+        qk_t = qk.permute(2, 3, 4, 0, 1).reshape(2 * H * Dp, B, N).contiguous()
+        v7 = qkv[..., 2 * H * D:].contiguous()
+        kw = dict(dit_kw, contract="serving", block_size=bs, n_valid=N)
+        check_block(K7, bs, f"DiT split-emission {tuple(qk_t.shape)} serving",
+                    lambda: ta.fused_topk_attention_qkv_t(qk_t, v7, H, **kw),
+                    lambda: ta.fused_topk_attention_qkv_t_ref(qk_t, v7, H,
+                                                              **kw),
+                    attention_bound(B * H, N, N, D, 2, 2, 154, 8, True))
+        del qk, qk_t, v7
+        kw = dict(k=77, scale=D ** -0.5, key_bits=32, flush=True,
+                  pred_mode="two_step_leading_ones", contract="exact",
+                  block_size=bs)
+        check_block(K3, bs, "PixArt 256 self (8, 16, 256, 72) f32 two_step "
+                    "k=77 exact",
+                    lambda: ta.fused_topk_attention(pq, pk, pv, **kw),
+                    lambda: ta.fused_topk_attention_ref(pq, pk, pv, **kw),
+                    attention_bound(8 * H, 256, 256, D, 4, 4, 77, 32, True,
+                                    pred="two_step_leading_ones"))
+        kw = dict(k=CAPTION_TOKENS, scale=D ** -0.5, key_bits=32, flush=True,
+                  contract="serving", block_size=bs)
+        check_block(K3, bs, f"PixArt 256 cross S={CAPTION_TOKENS} bias "
+                    "dense serving",
+                    lambda: ta.fused_topk_attention(pq, ck, cv, cbias, **kw),
+                    lambda: ta.fused_topk_attention_ref(pq, ck, cv, cbias,
+                                                        **kw),
+                    attention_bound(8 * H, 256, CAPTION_TOKENS, D, 4, 4,
+                                    CAPTION_TOKENS, 32, False,
+                                    extra_bytes=8 * CAPTION_TOKENS * 4))
+        for contract in ("serving", "exact"):
+            kw = dict(dit_kw, contract=contract, block_size=bs,
+                      pred_mode="ELSA", proj=proj, max_norm=int8_norm)
+            check_block(K3, bs, f"DiT-256 ELSA {(B, H, N, D)} bf16 k=154 "
+                        f"{contract}",
+                        lambda: ta.fused_topk_attention(eq, ek, ev, **kw),
+                        lambda: ta.fused_topk_attention_ref(eq, ek, ev, **kw),
+                        attention_bound(B * H, N, N, D, 2, 2, 154, 8, True,
+                                        pred="ELSA"))
+        kw = dict(dit_kw, contract="serving", block_size=bs)
+        check_block(K4, bs, f"DiT-512 {tuple(lq.shape)} bf16 ex_pred k=154 "
+                    "serving",
+                    lambda: ta.fused_topk_attention_tiled(lq, lk, lv, **kw),
+                    lambda: ta.fused_topk_attention_ref(lq, lk, lv, **kw),
+                    attention_bound(lq.shape[0] * H, 1024, 1024, D, 2, 2,
+                                    154, 8, True))
+        if bs in TIMED_BLOCKS:
+            # the plain version on 4 of the 16 heads (its score tensors for
+            # all 16 would take ~30 GB); its time scaled by 4
+            kw = dict(k=77, scale=D ** -0.5, key_bits=32, flush=True,
+                      pred_mode="two_step_leading_ones", contract="exact",
+                      block_size=bs)
+            hq, hk, hv = (t[:, :4].contiguous() for t in (xq, xk, xv))
+            check_block(K4, bs, "PixArt 1024 self (2, 16, 4096, 72) f32 "
+                        "two_step k=77 exact (plain on 4 heads)",
+                        lambda: ta.fused_topk_attention_tiled(
+                            xq, xk, xv, **kw)[:, :4],
+                        lambda: ta.fused_topk_attention_ref(hq, hk, hv, **kw),
+                        attention_bound(2 * H, 4096, 4096, D, 4, 4, 77, 32,
+                                        True, pred="two_step_leading_ones"))
+            block_timed[K4][-1]["plain_ms"] *= 4
+            del hq, hk, hv
+        # K1 at DiT's sites (the linears' bf16 inputs, the adaLN's f32
+        # condition), K6 at its fc2 site (tanh), at DiT's specs
+        args1 = ("int8", bs, 8, torch.bfloat16, False, 16)
+        for x in (k5x, fc2, ada):
+            in_bf16 = x.dtype == torch.bfloat16
+            check_block(K1, bs, f"DiT {tuple(x.shape)} {x.dtype} bfloat=16",
+                        lambda: mx_quantize(x, *args1),
+                        lambda: mx_quantize_ref(x, *args1),
+                        elementwise_bound(
+                            x.numel() * (x.element_size() + 2),
+                            x.numel() * mx_ops("int8", False, not in_bf16,
+                                               in_bf16)))
+        args6 = args1 + (True,)
+        check_block(K6, bs, f"DiT fc2 {tuple(fc2.shape)} bf16 tanh bfloat=16",
+                    lambda: gelu_quantize(fc2, *args6),
+                    lambda: gelu_quantize_ref(fc2, *args6),
+                    elementwise_bound(fc2.numel() * 4, fc2.numel() * (
+                        9 + mx_ops("int8", False, True, True))))
+        args5 = ("int8", bs, 8, 1e-6, torch.bfloat16, False, 16)
+        check_block(K5, bs, f"DiT {tuple(k5x.shape)} bf16 serving",
+                    lambda: lnq.ln_modulate_quantize(k5x, k5h, k5s, *args5),
+                    lambda: lnq.ln_modulate_quantize_ref(k5x, k5h, k5s,
+                                                         *args5),
+                    elementwise_bound(
+                        k5x.numel() * 4 + 2 * k5h.numel() * 2,
+                        k5x.numel() * (7 + mx_ops("int8", False, True, True))
+                        + 5 * B * N + 3 * k5h.numel()))
+    del qkv, deit_qkv, pq, pk, pv, ck, cv, lq, lk, lv, xq, xk, xv, eq, ek, ev
+    del k5x, fc2, ada
+    stamp("block sizes: kernel checks done")
+
+    sinks = (block_sites, block_launches)
+    base = init_dit(cfg, torch.Generator().manual_seed(0), dev,
+                    randomize_all=True)
+    for bs in TIMED_BLOCKS:
+        model, specs = prequantize_weights(
+            copy.deepcopy(base), dataclasses.replace(dit_mx_specs(),
+                                                     block_size=bs),
+            serve_dtype=torch.bfloat16)
+        bq = dataclasses.replace(dit_q, mx_specs=specs)
+        for contract in ("serving", "exact"):
+            qc = dataclasses.replace(bq, contract=contract)
+            sample_dit(model, qc, labels, gen, num_steps=2, device=dev)
+            lat = run_path(f"DiT-XL/2 block {bs}", contract, BLOCK_STEPS,
+                           dit_per_fwd, DIT_IMAGES,
+                           lambda: sample_dit(model, qc, labels, gen,
+                                              num_steps=BLOCK_STEPS,
+                                              device=dev), sinks=sinks)
+            if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
+                    not torch.isfinite(lat).all():
+                fail(f"DiT block {bs} {contract}: latents not finite / "
+                     "wrong shape")
+            print(f"[block] DiT-XL/2 block {bs} {contract}: latent std "
+                  f"{lat.float().std().item():.4g}", flush=True)
+        if bs == 16:  # the fused opt-ins: K5, K6 and K7 at block 16
+            qc = dataclasses.replace(bq, fuse_ln_modulate=True,
+                                     fuse_gelu=True, qkv_layout="split_t",
+                                     contract="serving")
+            sample_dit(model, qc, labels, gen, num_steps=2, device=dev)
+            lat = run_path("DiT-XL/2 fused opt-ins block 16", "serving",
+                           BLOCK_STEPS, fused_per_fwd["serving"], DIT_IMAGES,
+                           lambda: sample_dit(model, qc, labels, gen,
+                                              num_steps=BLOCK_STEPS,
+                                              device=dev), sinks=sinks)
+        else:  # ELSA at block 64: the split entry, K3
+            qc = dataclasses.replace(bq, pred_mode="ELSA", contract="serving")
+            lat = run_path("DiT-XL/2 ELSA block 64", "serving",
+                           BLOCK_SHORT_STEPS,
+                           {K1: 4 * depth + 2, K2: 1, K3: depth - 1},
+                           DIT_IMAGES,
+                           lambda: sample_dit(model, qc, labels, gen,
+                                              num_steps=BLOCK_SHORT_STEPS,
+                                              device=dev,
+                                              orthogonal_matrix=proj),
+                           sinks=sinks)
+        if lat.shape != (DIT_IMAGES, 4, 32, 32) or \
+                not torch.isfinite(lat).all():
+            fail(f"DiT block {bs} opt-ins / ELSA: latents not finite")
+        del model
+    del base
+    # DiT-XL/2 512^2 at block 16: K4 in every block
+    model = init_dit(cfg512, torch.Generator().manual_seed(0), dev,
+                     randomize_all=True)
+    model, specs = prequantize_weights(
+        model, dataclasses.replace(dit_mx_specs(), block_size=16),
+        serve_dtype=torch.bfloat16)
+    qc = dataclasses.replace(dit512_q, mx_specs=specs, contract="serving")
+    lat = run_path("DiT-XL/2 512^2 block 16", "serving", BLOCK_SHORT_STEPS,
+                   {K1: 4 * cfg512.depth + 2, K4: cfg512.depth},
+                   DIT512_IMAGES,
+                   lambda: sample_dit(model, qc, labels512, gen,
+                                      num_steps=BLOCK_SHORT_STEPS,
+                                      device=dev), sinks=sinks)
+    if lat.shape != (DIT512_IMAGES, 4, 64, 64) or \
+            not torch.isfinite(lat).all():
+        fail("DiT 512 block 16: latents not finite / wrong shape")
+    del model
+    # DeiT-small at block 16: K2 at N = 197, f32, key_bits 32
+    vcfg = VIT_CONFIGS["deit_small_patch16_224"]
+    vmodel = init_vit(vcfg, torch.Generator().manual_seed(0), dev)
+    vmodel, vspecs = prequantize_weights(
+        vmodel, dataclasses.replace(default_mx_specs(), block_size=16))
+    qc = VitQuantConfig(mx_specs=vspecs, mx_quant=True, top_k=True, k=60,
+                        contract="serving")
+    vbatches = [(randn(DEIT_BATCH, 3, 224, 224),
+                 torch.randint(0, 1000, (DEIT_BATCH,), generator=gen,
+                               device=dev))
+                for _ in range(BLOCK_DEIT_BATCHES)]
+    stats = run_path("deit_small block 16", "serving", BLOCK_DEIT_BATCHES,
+                     {K1: 4 * vcfg.depth, K2: vcfg.depth},
+                     DEIT_BATCH * BLOCK_DEIT_BATCHES,
+                     lambda: evaluate(vmodel, qc, vbatches, log_every=0,
+                                      device=dev), sinks=sinks)
+    if stats["n"] != DEIT_BATCH * BLOCK_DEIT_BATCHES:
+        fail(f"DeiT-small block 16: evaluated {stats['n']} images")
+    del vmodel, vbatches
+    print(f"[block] launches at the block sizes other than 32: "
+          f"{block_launches}", flush=True)
+
+    def site_calls(name, site):
+        """The kernel's call and its plain version's on random inputs of a
+        call site the wrappers recorded (shapes, dtypes, arguments)."""
+        if name in (K1, K5, K6):
+            shape, dtype, *args = site
+            x = randn(*shape, scale=3.0, dtype=dtype)
+            if name == K5:
+                sh, sc = (randn(shape[0], shape[2], scale=0.3, dtype=dtype)
+                          for _ in range(2))
+                return (lambda: lnq.ln_modulate_quantize(x, sh, sc, *args),
+                        lambda: lnq.ln_modulate_quantize_ref(x, sh, sc,
+                                                             *args))
+            fn, ref = (mx_quantize, mx_quantize_ref) if name == K1 else \
+                (gelu_quantize, gelu_quantize_ref)
+            return lambda: fn(x, *args), lambda: ref(x, *args)
+        if name == K2:
+            shape, dtype, heads, kw = site
+            x, kw = randn(*shape, dtype=dtype), dict(kw)
+            return (lambda: ta.fused_topk_attention_qkv(x, heads, **kw),
+                    lambda: ta.fused_topk_attention_qkv_ref(x, heads, **kw))
+        if name == K7:
+            qs, vs, dtype, heads, kw = site
+            kw = dict(kw)
+            d, dp = vs[2] // heads, qs[0] // (2 * heads)
+            qk_t = randn(2 * heads, dp, *qs[1:], dtype=dtype)
+            qk_t[:, d:] = 0  # the projection's zero padding
+            qk_t = qk_t.reshape(qs)
+            v = randn(*vs, dtype=dtype)
+            return (lambda: ta.fused_topk_attention_qkv_t(qk_t, v, heads,
+                                                          **kw),
+                    lambda: ta.fused_topk_attention_qkv_t_ref(qk_t, v, heads,
+                                                              **kw))
+        qs, ks, dtype, bshape, pshape, kw = site  # K3, K4
+        kw = dict(kw)
+        q, kx = (randn(*s_, scale=4.0, dtype=dtype) for s_ in (qs, ks))
+        vx = randn(*ks, dtype=dtype)
+        bias = None if bshape is None else caption_bias(
+            bshape[0], bshape[3], dev)[0]
+        mp = None if pshape is None else orthogonal_matrix(qs[3], dev)
+        fn = ta.fused_topk_attention if name == K3 else \
+            ta.fused_topk_attention_tiled
+        return (lambda: fn(q, kx, vx, bias, mp, **kw),
+                lambda: ta.fused_topk_attention_ref(q, kx, vx, bias, mp,
+                                                    **kw))
+
+    # every call site the block-size paths gave a kernel, held bit for bit
+    # to its plain version on random inputs of its shapes and arguments
+    for name, sites in block_sites.items():
+        for site in sites:
+            fn, ref = site_calls(name, site)
+            got, want = fn(), ref()
+            torch.cuda.synchronize()
+            block_err[name] = max(block_err[name], (
+                got.float() - want.float()).abs().max().item())
+            if not torch.equal(got, want) or not torch.isfinite(got).all():
+                fail(f"{name} at the block-size paths' site {site} differs "
+                     "from its plain version")
+            del got, want, fn, ref
+    print(f"[block] each kernel at every site of the block-size paths "
+          f"({ {n: len(s_) for n, s_ in block_sites.items()} } sites): "
+          "bit-equal", flush=True)
+    stamp("block sizes phase done")
 
     # 7. DiT-XL/2 256^2 on the emulation engine (dit_mx_specs("ref"), the
     # JAX CLI's --engine ref: f32 activations, weights quantized on the
@@ -2688,6 +3038,25 @@ def main():
              plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
              bound_by=k7["bound_by"], library_ms=None, sites=k7_sites),
     ]
+    blocks_src = "mx_quantization_tpu_torch/csrc/topk_attention_blocks.cu"
+    for entry in list(kernels):
+        name = entry["name"]
+        if name not in block_timed:
+            continue
+        sites = block_timed[name]
+        # the mean over the sites timed at TIMED_BLOCKS
+        mean = {key: sum(st[key] for st in sites) / len(sites)
+                for key in ("ms", "plain_ms", "bound_ms")}
+        own = name in (K1, K5, K6)  # the block a launch argument
+        kernels.append(dict(
+            name=f"{name} (blocks {', '.join(map(str, OTHER_BLOCKS))})",
+            route=entry["route"] if own else "cuda",
+            source=entry["source"] if own else blocks_src,
+            replaces=entry["replaces"], launches=block_launches[name],
+            max_abs_err=block_err[name], **mean,
+            bound_by=collections.Counter(
+                st["bound_by"] for st in sites).most_common(1)[0][0],
+            library_ms=None, sites=sites))
     stamp("kernel times done")
     print(json.dumps({"tiers": tiers, "servers": servers,
                       "endtask": endtask_stats, "training": training_stats,

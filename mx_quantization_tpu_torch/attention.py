@@ -120,7 +120,7 @@ def fused_qkv_eligible(mx_specs, cfg: TopKAttentionConfig, n: int) -> bool:
     takes the split entry (K3 or K4) through ``topk_attention``."""
     return (mx_specs is not None and cfg.mx_quant
             and _kernel_specs_ok(mx_specs, cfg)
-            and n <= MAX_TOKENS and mx_specs.block_size == 32
+            and n <= MAX_TOKENS
             and (cfg.pred_mode in _KERNEL_PRED_MODES
                  or not cfg.approx_flag))
 

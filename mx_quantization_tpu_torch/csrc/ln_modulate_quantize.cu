@@ -18,9 +18,10 @@
 //
 // Design.  One warp per token row.  Lane l holds the 8-channel chunks
 // k = l + 32 j of the row (round j), read and written with 16-byte accesses
-// (two for f32), so a 32-channel MX block is 4 neighbouring lanes of one
-// round: its maximum takes two xor shuffles, and the shared exponent and
-// its powers of two are computed once per lane per block.  Rows of up to
+// (two for f32), so an MX block of bs channels (bs = 8 .. 128, a power of
+// two dividing C) is bs / 8 neighbouring lanes of one round: its maximum
+// takes log2(bs / 8) xor shuffles (two at bs = 32), and the shared exponent
+// and its powers of two are computed once per lane per block.  Rows of up to
 // 5 rounds (1280 channels) stay in registers.  A block of 8 warps owns a
 // tile of 32 rows of one batch element and stages 1 + scale and shift of
 // that element once, as f32, in shared memory (8 C bytes), where every row
@@ -52,6 +53,11 @@
 #ifndef K5_MAX_CHANNELS
 #error "build with -DK5_MAX_CHANNELS=<n> (ops/kernels/build.py passes it)"
 #endif
+// The MX block sizes it takes (BLOCK_SIZES in ops/kernels/__init__.py), as
+// the sum of their powers of two.
+#ifndef MX_BLOCK_MASK
+#error "build with -DMX_BLOCK_MASK=<n> (ops/kernels/build.py passes it)"
+#endif
 
 namespace {
 
@@ -75,6 +81,7 @@ struct Params {
   void* out;
   long long rows;
   int N, C, nr, nchunks, tiles, shift_stride, scale_stride;
+  int blk_lanes;  // lanes (8-channel chunks) per MX block: bs / 8
   int ss_bf16, out_bf16, bfloat16;  // bfloat16 picks the kBf16Round kernels
   float inv_c, eps;
   Fmt fmt;
@@ -190,8 +197,10 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// Modulate, round and quantize one chunk of centred values (its 4-lane MX
-// block's maximum by two xor shuffles: every lane of the warp takes part)
+// Modulate, round and quantize one chunk of centred values (its MX block's
+// maximum over blk_lanes lanes by xor shuffles: every lane of the warp
+// takes part; C % bs == 0, so a block's lanes are all in the row or all
+// past its end)
 // and store it at element o of the output where ok.  a = 1 + scale and
 // b = shift of the chunk's channels.  The format family (kInt) and the
 // bf16 round (kBf16Round) are template arguments, so that no element branches.
@@ -205,8 +214,9 @@ __device__ __forceinline__ void emit(const Params& p, float (&v)[kVec], float rs
     v[i] = modulate<kBf16Round>(v[i], rs, a[i], b[i]);
     m = max(m, mag_bits(v[i]));
   }
-  m = max(m, __shfl_xor_sync(kFull, m, 1));
-  m = max(m, __shfl_xor_sync(kFull, m, 2));
+#pragma unroll
+  for (int o = 1; o <= 8; o <<= 1)
+    if (o < p.blk_lanes) m = max(m, __shfl_xor_sync(kFull, m, o));
   const int e = shared_exp(m, p.fmt);
 #pragma unroll
   for (int i = 0; i < kVec; ++i) v[i] = quant_k1<kInt>(v[i], m, e, p.fmt);
@@ -401,14 +411,18 @@ int launch_format(const Params& p, cudaStream_t stream) {
 // Launch K5 on `stream` over `rows` = B * N rows of C channels.  shift and
 // scale are (B, C) rows of f32 or (ss_bf16) bf16, `shift_stride` and
 // `scale_stride` elements apart; every pointer and row is 16-byte aligned.
+// MX blocks of block_size channels: 8, 16, 32, 64 or 128, dividing C.
 // Returns the cudaError_t of the launch (0 = ok).
 extern "C" int ln_modulate_quantize(const void* x, const void* shift, const void* scale,
                                     void* out, long long rows, int N, int C,
                                     int shift_stride, int scale_stride, int in_bf16,
                                     int ss_bf16, int out_bf16, float inv_c, float eps,
                                     int bfloat16, int flush, int ebits, int mbits, int emax,
-                                    float max_norm, int scale_bits, void* stream) {
-  if (rows < 1 || N < 1 || C < kBlock || C % kBlock || C > K5_MAX_CHANNELS || rows % N)
+                                    float max_norm, int scale_bits, int block_size,
+                                    void* stream) {
+  const bool block_ok = block_size > 0 && (block_size & (block_size - 1)) == 0 &&
+                        (block_size & MX_BLOCK_MASK) != 0;
+  if (rows < 1 || N < 1 || !block_ok || C % block_size || C > K5_MAX_CHANNELS || rows % N)
     return int(cudaErrorInvalidValue);
   Params p;
   p.x = x;
@@ -420,6 +434,7 @@ extern "C" int ln_modulate_quantize(const void* x, const void* shift, const void
   p.C = C;
   p.nr = (C + kRoundChannels - 1) / kRoundChannels;
   p.nchunks = C / kVec;
+  p.blk_lanes = block_size / kVec;
   p.tiles = (N + kTileRows - 1) / kTileRows;
   p.shift_stride = shift_stride;
   p.scale_stride = scale_stride;

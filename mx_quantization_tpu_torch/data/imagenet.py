@@ -5,15 +5,17 @@ Lists val/<wnid>/*.JPEG with classes sorted by name (torchvision
 ImageFolder's indices), decodes with PIL, resizes the short side to
 img_size / 0.875 bicubically, centre-crops img_size, normalizes, and batches
 as NCHW float32 numpy arrays: the reference's eval transform.  PIL is
-imported at the first decode, so the module imports without it.  The JAX
-package's native C++ loader (libjpeg, bilinear) is not ported yet:
-``native=True`` raises (ROADMAP.md).
+imported at the first decode, so the module imports without it.
+``native=True`` takes the C++ loader instead (``native/``: libjpeg, a
+bilinear resize, a double-buffered iterator), and the PIL decode where that
+loader cannot be built or loaded, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import os
+import sys
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -65,11 +67,9 @@ def iterate_imagenet(root: str, batch_size: int = 100, img_size: int = 224,
 
     shard=(rank, world): each process reads the interleaved shard
     paths[rank::world] (the reference's DistributedSampler without
-    shuffling); ``limit`` cuts the shard."""
-    if native:
-        raise NotImplementedError(
-            "the native C++ loader is not ported yet (ROADMAP.md); "
-            "pass native=False for the PIL decode")
+    shuffling); ``limit`` cuts the shard.  ``native``: the C++ loader, with
+    the PIL decode as the fallback (module docstring), which it names on
+    stderr."""
     paths, labels = list_imagenet(root)
     rank, world = shard
     paths = paths[rank::world]
@@ -77,6 +77,17 @@ def iterate_imagenet(root: str, batch_size: int = 100, img_size: int = 224,
     if limit is not None:
         paths, labels = paths[:limit], labels[:limit]
 
+    if native:
+        from ..native import dataloader as nl
+        try:
+            nl.load()
+        except (OSError, RuntimeError) as err:  # no g++, no libjpeg
+            print(f"native ImageNet loader unavailable ({err}); decoding "
+                  "with PIL", file=sys.stderr)
+            native = False
+    if native:
+        yield from nl.iterate(paths, labels, batch_size, img_size)
+        return
     with cf.ThreadPoolExecutor(num_workers) as ex:
         for i in range(0, len(paths), batch_size):
             bp = paths[i:i + batch_size]

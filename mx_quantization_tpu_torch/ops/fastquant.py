@@ -84,7 +84,7 @@ def lane_sum(e: torch.Tensor) -> torch.Tensor:
 
 
 def k5_row_sum(e: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (a multiple of 32) in kernel K5's order: the
+    """Sum over the last axis (a multiple of 8) in kernel K5's order: the
     axis in 8-element chunks, chunk k on lane k % 32 in round k // 32; each
     chunk's values as the tree ((c0 + c1) + (c2 + c3)) + ((c4 + c5) +
     (c6 + c7)), a lane's chunk sums in round order (the last round padded

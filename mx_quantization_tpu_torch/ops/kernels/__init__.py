@@ -3,6 +3,14 @@ version and a launch counter on its wrapper."""
 
 import torch
 
+# the MX block sizes of the port's kernels and their plain versions: those
+# that divide 128 (the TPU attention kernels pad tokens to a multiple of
+# 128), from 8 up; the TPU kernels also run 1, 2 and 4, which the port does
+# not take yet (ROADMAP.md)
+BLOCK_SIZES = (8, 16, 32, 64, 128)
+# the same set for the CUDA sources, as the sum of its powers of two
+BLOCK_DEFINES = (("MX_BLOCK_MASK", sum(BLOCK_SIZES)),)
+
 
 def records_grad(*tensors) -> bool:
     """Does autograd record a call on these tensors (grad enabled and one

@@ -19,7 +19,9 @@ Numerics (kernel and plain version), per token row of C channels, in f32:
     rounded on its own (the source spells each as a __fmul_rn or
     __fadd_rn, which the compiler never contracts into a fused
     multiply-add)
-  * bfloat=16 rounds y half away from zero to bf16, then K1's quantizer
+  * bfloat=16 rounds y half away from zero to bf16, then K1's quantizer in
+    blocks of bs channels, bs in BLOCK_SIZES dividing C (JAX's kernel takes
+    any bs that divides C)
 ``ln_modulate_quantize`` launches the kernel on a CUDA tensor and raises
 where it cannot; only a CPU tensor takes the plain version
 ``ln_modulate_quantize_ref``.
@@ -35,7 +37,7 @@ import torch
 
 from ...formats import format_params
 from ..fastquant import k5_row_sum
-from . import build, inference_only
+from . import BLOCK_DEFINES, BLOCK_SIZES, build, inference_only
 from .quantize import mx_quantize_ref
 
 SOURCE = "ln_modulate_quantize.cu"
@@ -44,7 +46,19 @@ SOURCE = "ln_modulate_quantize.cu"
 # warp's registers; a wider row is kept in shared memory, 4 C bytes a warp
 # for f32 input (the source checks that this constant's row fits there)
 MAX_CHANNELS = 12288
-DEFINES = (("K5_MAX_CHANNELS", MAX_CHANNELS),)
+# K5 takes every block of BLOCK_SIZES: a block is 1 to 16 of a warp's
+# neighbouring 8-channel chunks
+DEFINES = (("K5_MAX_CHANNELS", MAX_CHANNELS),) + BLOCK_DEFINES
+
+
+def _check_block(C: int, block_size: int) -> None:
+    if block_size not in BLOCK_SIZES:
+        raise NotImplementedError(
+            f"block_size={block_size}: the TPU kernel takes any block that "
+            f"divides C, K5 takes {BLOCK_SIZES} (ROADMAP.md)")
+    if C % block_size:
+        raise ValueError(f"C={C} must be a multiple of the block "
+                         f"({block_size})")
 
 
 def _inv(C: int) -> float:
@@ -60,9 +74,7 @@ def ln_modulate_quantize_ref(x: torch.Tensor, shift: torch.Tensor,
                              bfloat: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K5: x (B, N, C), shift and scale (B, C)."""
     B, N, C = x.shape
-    if C % 32 or C % block_size:
-        raise ValueError(f"C={C} must be a multiple of 32 and of the block "
-                         f"({block_size})")
+    _check_block(C, block_size)
     x32 = x.to(torch.float32)
     inv_c = _inv(C)
     xc = x32 - k5_row_sum(x32) * inv_c
@@ -80,7 +92,7 @@ def _library() -> ctypes.CDLL:
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.ln_modulate_quantize.argtypes = [p, p, p, p, ctypes.c_longlong, i, i,
                                          i, i, i, i, i, f, f, i, i, i, i, i,
-                                         f, i, p]
+                                         f, i, i, p]
     lib.ln_modulate_quantize.restype = ctypes.c_int
     return lib
 
@@ -125,11 +137,10 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
         raise TypeError(f"K5 takes float32 or bfloat16 x, not {x.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K5 writes float32 or bfloat16, not {out_dtype}")
-    if block_size != 32:
-        raise NotImplementedError("K5 quantizes in 32-element blocks")
-    if C % 32 or C > MAX_CHANNELS:
+    _check_block(C, block_size)
+    if C > MAX_CHANNELS:
         raise NotImplementedError(
-            f"K5 takes C a multiple of 32 up to MAX_CHANNELS = {MAX_CHANNELS} "
+            f"K5 takes C up to MAX_CHANNELS = {MAX_CHANNELS} "
             f"(ops/kernels/ln_modulate_quantize.py), got {C}")
     if not x.is_contiguous():
         raise ValueError("K5 takes a contiguous x")
@@ -150,7 +161,7 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
             N, C, sh.stride(0), sc.stride(0), int(x.dtype == torch.bfloat16),
             int(sh.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
             _inv(C), float(eps), int(bfloat == 16), int(flush), ebits, mbits,
-            emax, float(max_norm), scale_bits, stream)
+            emax, float(max_norm), scale_bits, block_size, stream)
     if err:
         raise RuntimeError(f"K5 launch failed with CUDA error {err}")
     ln_modulate_quantize.launches += 1

@@ -38,7 +38,7 @@ import torch
 
 from ...formats import format_params
 from ..fastquant import bf16_round_half_away, quantize_blocks
-from . import inference_only
+from . import BLOCK_SIZES, inference_only
 
 _BLOCK_M = 32
 _BLOCK_K = 128
@@ -196,7 +196,7 @@ def _check_tile_args(name, x, block_size, out_dtype):
                         f"{x.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} writes float32 or bfloat16, not {out_dtype}")
-    if K % block_size or block_size not in (8, 16, 32, 64, 128):
+    if K % block_size or block_size not in BLOCK_SIZES:
         raise ValueError(f"{name} needs a power-of-two block <= {_BLOCK_K} "
                          f"dividing the last axis (K={K}, "
                          f"block={block_size})")

@@ -19,6 +19,9 @@ shape, so that K4 can be held to K3 where both apply.  Both quantize each
 (row, head) cell's K side once, in a pre-pass of the same call, into a
 workspace their wrapper allocates.  Each source's note says what bounds it
 and how the design answers.
+At every MX block size but 32 the four entries launch one simpler kernel
+(``csrc/topk_attention_blocks.cu``, the same function and summation orders,
+a warp per query row) instead of their block-32 kernel.
 ``fused_topk_attention_qkv``, ``fused_topk_attention_qkv_t``,
 ``fused_topk_attention`` and ``fused_topk_attention_tiled`` launch their
 kernel on a CUDA tensor and raise where they cannot; only a CPU tensor
@@ -28,12 +31,16 @@ and K4's).  Each kernel's shape limits are the constants
 below, which the wrappers, the eligibility checks of ``attention.py`` and
 (through ``nvcc -D``) the CUDA sources all read.
 
-Numerics (the kernels and their plain versions), per (batch row, head):
-  * q and k MX-quantized along D (zero-padded to the block), v along the
-    keys in 32-key blocks per column; an f32 input at bfloat=16 is first
-    rounded to bf16 half away from zero; flush zeroes a block whose maximum
-    is f32-subnormal
-  * true scores: each 32-d block summed exactly (INT formats: the integer
+Numerics (the kernels and their plain versions), per (batch row, head),
+in MX blocks of bs elements, bs in BLOCK_SIZES (the block sizes the TPU
+kernels take: they pad tokens to a multiple of 128, so bs divides 128; the
+tuned kernels take bs = 32, a simpler kernel every other bs, each summing
+in the orders below with bs in place of 32):
+  * q and k MX-quantized along D (zero-padded to Dp = round_up(max(D, 8),
+    bs)), v along the keys in bs-key blocks per column; an f32 input at
+    bfloat=16 is first rounded to bf16 half away from zero; flush zeroes a
+    block whose maximum is f32-subnormal
+  * true scores: each bs-d block summed exactly (INT formats: the integer
     grid points' block sum, multiplied by 2^(eq - (mbits-2)) and then by
     2^(ek - (mbits-2)); MXFP: the products in d order) and the blocks added
     in order; the exact tier rounds them half away to bf16 (bfloat=16),
@@ -79,15 +86,16 @@ Numerics (the kernels and their plain versions), per (batch row, head):
     ``_fragment_sum``)
   * exact tier: attn rounded half away to bf16 (bfloat=16) and MX-quantized
     along the keys with the sign-free quantizer; serving: RNE cast to bf16
-  * PV: the serving tier in key order; the exact tier per 32-key block
+  * PV: the serving tier in key order; the exact tier per bs-key block
     exactly (INT: the grid points' block sum times 2^(ep - (mbits-2)),
     then 2^(ev - (mbits-2)); MXFP: key order within the block), the blocks
     in order, then rounded half away to bf16 (bfloat=16); the cast to
     ``out_dtype`` is RNE
 The quantized values are kept as bf16 (exact on the int grids), as the TPU
 kernels store them, and the plain versions cast them the same way.  Keys and
-tokens are zero-padded to a multiple of 32 and masked; the TPU kernels pad
-to 128, which leaves every value unchanged.
+tokens are zero-padded to a multiple of max(32, bs) and masked; the TPU
+kernels pad to 128, which leaves every value unchanged (a padded key's
+probability is 0, and every sum above adds it as +0).
 """
 
 from __future__ import annotations
@@ -104,10 +112,13 @@ from ...formats import FormatParams
 from ...predictors.elsa import THETA_BIAS
 from ..fastquant import (bf16_round_half_away, lane_sum, pow2, quantize_blocks,
                          round_half_away)
-from . import build, inference_only
+from . import BLOCK_DEFINES, BLOCK_SIZES, build, inference_only
 
 SOURCE = "topk_attention_qkv.cu"
 SPLIT_SOURCE = "topk_attention_split.cu"
+# K2, K7, K3 and K4 at the block sizes other than 32 (one build, bs a
+# launch argument)
+BLOCKS_SOURCE = "topk_attention_blocks.cu"
 # K2 and K7 hold a whole head in shared memory: at most MAX_TOKENS tokens,
 # the TPU kernels' qkv entries' limit
 MAX_TOKENS = 512
@@ -157,8 +168,16 @@ def _check_args(pred_mode, approx, contract, key_bits, block_size,
         raise ValueError(f"unknown contract {contract!r}")
     if key_bits not in (8, 16, 32):
         raise ValueError(f"key_bits must be 8, 16 or 32, not {key_bits}")
-    if block_size != 32:
-        raise NotImplementedError("K2 quantizes in 32-element blocks")
+    if block_size in BLOCK_SIZES:
+        return
+    if block_size in (1, 2, 4):
+        raise NotImplementedError(
+            f"block_size={block_size}: the TPU kernels run it, the port's "
+            f"attention kernels take {BLOCK_SIZES} (ROADMAP.md)")
+    raise ValueError(
+        f"block_size={block_size}: the TPU kernels pad tokens to a multiple "
+        "of 128 and quantize them in blocks, so the block size must divide "
+        f"128; the port's attention kernels take {BLOCK_SIZES}")
 
 
 # ----------------------------------------------------------------------
@@ -211,7 +230,7 @@ def _mx_mantissas(xb: torch.Tensor, fmt, scale_bits: int, flush: bool,
                   nonneg: bool = False):
     """The integer grid points q (float32) and shared exponents e (int32,
     (..., nblocks)) of ``quantize_blocks``' int path on float32 blocks
-    (..., nblocks, 32): its value is q * 2^(e - (mbits-2)); q is 0 where
+    (..., nblocks, bs): its value is q * 2^(e - (mbits-2)); q is 0 where
     the scale 2^e or its inverse is 0 (the kernels' ``quant_int``)."""
     _, mbits, emax, _, _ = fmt
     mb = (xb.contiguous().view(torch.int32) & 0x7FFFFFFF).amax(
@@ -233,8 +252,8 @@ def _mx_mantissas(xb: torch.Tensor, fmt, scale_bits: int, flush: bool,
 
 def _block_scaled_dot(am: torch.Tensor, ae: torch.Tensor, bm: torch.Tensor,
                       be: torch.Tensor, shift: int) -> torch.Tensor:
-    """Blockwise product of integer grid points: am (..., M, nb, 32) with
-    exponents ae (..., M, nb), bm (..., P, nb, 32) with be (..., P, nb) ->
+    """Blockwise product of integer grid points: am (..., M, nb, bs) with
+    exponents ae (..., M, nb), bm (..., P, nb, bs) with be (..., P, nb) ->
     (..., M, P).  Each block's sum is exact (an integer below 2^24, as the
     kernels' int8 mma gives it); in f32 it is multiplied by 2^(ae - shift),
     then by 2^(be - shift), and the blocks are added in order."""
@@ -249,7 +268,7 @@ def _block_scaled_dot(am: torch.Tensor, ae: torch.Tensor, bm: torch.Tensor,
 
 
 def _blocks_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (..., M, nb, 32) and b (..., P, nb, 32) -> (..., M, P): each
+    """a (..., M, nb, bs) and b (..., P, nb, bs) -> (..., M, P): each
     block's f32 sum in index order (``_dot_in_order``), then the blocks
     added in order."""
     out = None
@@ -275,22 +294,22 @@ def _fragment_sum(e: torch.Tensor) -> torch.Tensor:
 
 
 def _d_mask(vals: torch.Tensor, d_valid: int) -> torch.Tensor:
-    """1 at the valid d of blocks (..., nb, 32), 0 at the padding."""
-    nb = vals.shape[-2]
-    return (torch.arange(nb * 32, device=vals.device) < d_valid).reshape(
-        nb, 32).to(vals.dtype)
+    """1 at the valid d of blocks (..., nb, bs), 0 at the padding."""
+    nb, bs = vals.shape[-2:]
+    return (torch.arange(nb * bs, device=vals.device) < d_valid).reshape(
+        nb, bs).to(vals.dtype)
 
 
 def _ex_pred_operand(vals: torch.Tensor, e: torch.Tensor,
                      d_valid: int) -> torch.Tensor:
     """ex_pred operands +-2^e (zeros count as +) of quantized blocks
-    (..., nb, 32) with exponents (..., nb, 1); padded d masked."""
+    (..., nb, bs) with exponents (..., nb, 1); padded d masked."""
     pw = pow2(e.clamp(-126, 127))
     return torch.where(vals < 0, -pw, pw) * _d_mask(vals, d_valid)
 
 
 def _blockwise_scores(aq: torch.Tensor, ak: torch.Tensor) -> torch.Tensor:
-    """ex_pred scores from operands (..., N, nb, 32) and (..., S, nb, 32):
+    """ex_pred scores from operands (..., N, nb, bs) and (..., S, nb, bs):
     every per-block sum is exact, the blocks add in order."""
     blk = torch.einsum("...nkd,...skd->...nsk", aq, ak)
     out = blk[..., 0]
@@ -300,7 +319,7 @@ def _blockwise_scores(aq: torch.Tensor, ak: torch.Tensor) -> torch.Tensor:
 
 
 def _two_step_operand(vals: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """two_step_leading_ones operands of quantized blocks (..., nb, 32)
+    """two_step_leading_ones operands of quantized blocks (..., nb, bs)
     (bf16-exact) with exponents (..., nb, 1): sign(m) * e * (2^l1 + 2^l2)
     / 64, m = vals * 2^-e * 64, in the f32 operations and order of the TPU
     kernel's ``_two_step_approx``, then the bf16 cast.  e is the block
@@ -324,13 +343,12 @@ def _two_step_operand(vals: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_probs(st: torch.Tensor, s_sel, n_keys: int, *, k: int,
-                     key_bits: int, relaxed: bool, bfloat: int, fmt,
-                     scale_bits: int, flush: bool, row_sum=lane_sum,
-                     requantize: bool = True) -> torch.Tensor:
+                     key_bits: int, relaxed: bool, bfloat: int,
+                     row_sum=lane_sum) -> torch.Tensor:
     """Scaled true scores st (..., Kp) and predictor scores s_sel (None:
-    select by st) -> the attention probabilities that meet v, (..., Kp).
-    ``row_sum`` is the softmax sum's order; without ``requantize`` the
-    exact tier returns them before the MX quantize."""
+    select by st) -> the attention probabilities, (..., Kp): the serving
+    tier's bf16 values, the exact tier's before its MX quantize.
+    ``row_sum`` is the softmax sum's order."""
     Kp = st.shape[-1]
     valid = torch.arange(Kp, device=st.device) < n_keys
     if k >= n_keys:
@@ -351,13 +369,7 @@ def _attention_probs(st: torch.Tensor, s_sel, n_keys: int, *, k: int,
     attn = ex / row_sum(ex)
     if relaxed:
         return attn.to(torch.bfloat16).to(torch.float32)
-    if bfloat == 16:
-        attn = bf16_round_half_away(attn)
-    if not requantize:
-        return attn
-    attn, _ = quantize_blocks(attn.reshape(*st.shape[:-1], Kp // 32, 32), fmt,
-                              scale_bits, flush, nonneg=True)
-    return attn.reshape(st.shape)
+    return bf16_round_half_away(attn) if bfloat == 16 else attn
 
 
 def fused_topk_attention_qkv_ref(qkv: torch.Tensor, num_heads: int, *,
@@ -409,16 +421,16 @@ def fused_topk_attention_qkv_t_ref(qk_t: torch.Tensor, v: torch.Tensor,
                                         n_valid=n_valid, **kw)
 
 
-def _split_blocks(x: torch.Tensor, n_pad: int, Dp: int,
-                  bfloat: int) -> torch.Tensor:
-    """(B, H, n, D) -> float32 blocks along D (B, H, n_pad, nb, 32), zero
-    padded, rounded half away to bf16 first where bfloat=16."""
+def _split_blocks(x: torch.Tensor, n_pad: int, Dp: int, bfloat: int,
+                  block_size: int = 32) -> torch.Tensor:
+    """(B, H, n, D) -> float32 blocks along D (B, H, n_pad, Dp / bs, bs),
+    zero padded, rounded half away to bf16 first where bfloat=16."""
     x32 = x.to(torch.float32)
     if bfloat == 16 and x.dtype != torch.bfloat16:
         x32 = bf16_round_half_away(x32)
     x32 = torch.nn.functional.pad(x32, (0, Dp - x.shape[-1],
                                         0, n_pad - x.shape[-2]))
-    return x32.reshape(*x32.shape[:-1], Dp // 32, 32)
+    return x32.reshape(*x32.shape[:-1], Dp // block_size, block_size)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -426,7 +438,7 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (..., M, nb, 32) @ b (..., P, nb, 32)^T over every d, in float64
+    """a (..., M, nb, bs) @ b (..., P, nb, bs)^T over every d, in float64
     (exact: the operands are n / 64 with |n| < 2^14 integers, so every
     product and partial sum is a multiple of 2^-12 below 2^23), cast to
     float32 once (the kernels' int8 byte-plane products in int64)."""
@@ -436,7 +448,7 @@ def _exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _blockwise_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (..., M, nb, 32) @ b (..., P, nb, 32)^T: each block's sum exact (in
+    """a (..., M, nb, bs) @ b (..., P, nb, bs)^T: each block's sum exact (in
     float64; the operands are small integers times a power of two per block,
     as the kernels' int8 mma sums them), rounded to f32, the blocks added
     in order."""
@@ -502,7 +514,7 @@ def _elsa_cos_table(bits: int, device=torch.device("cpu")) -> torch.Tensor:
 
 def _elsa_hash(vals: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """+-1 signs (float32) of proj (bits, D) times each row of vals (...,
-    n, nb, 32): the products rounded in f32 and added in d order, >= 0 ->
+    n, nb, bs): the products rounded in f32 and added in d order, >= 0 ->
     +1.  Returns (..., n, bits)."""
     v = vals.reshape(*vals.shape[:-2], -1)
     acc = torch.zeros(*v.shape[:-1], proj.shape[0], device=vals.device)
@@ -514,7 +526,7 @@ def _elsa_hash(vals: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
 def _elsa_scores(qv: torch.Tensor, kv: torch.Tensor,
                  proj: torch.Tensor) -> torch.Tensor:
     """ELSA's predictor scores (B, H, N, Sp) from the quantized q (B, H, N,
-    nb, 32) and k (B, H, Sp, nb, 32): the norm of key n at query row n
+    nb, bs) and k (B, H, Sp, nb, bs): the norm of key n at query row n
     (sum of squares in d order; 0 past the keys) times the cosine of the
     angle its hamming distance estimates."""
     bits, D = proj.shape
@@ -549,12 +561,13 @@ def _int_route(ebits: int, pred: Optional[str]) -> bool:
 
 def _split_score_sums(q: torch.Tensor, k_: torch.Tensor, fmt,
                       scale_bits: int, flush: bool, bfloat: int,
-                      pred_mode: Optional[str], proj=None):
+                      pred_mode: Optional[str], proj=None,
+                      block_size: int = 32):
     """K3's and K4's true scores and (``pred_mode`` not None) predictor
     scores of q (B, H, N, D) against k (B, H, S, D), before the exact
-    tier's round, the scale and the bias: (B, H, N, S padded to 32) float32
-    each, the predictor's None without a predictor.  The true score sums
-    each 32-d block exactly and the blocks in order (the int-grid kernel:
+    tier's round, the scale and the bias: (B, H, N, S padded to a multiple
+    of max(32, bs)) float32 each, the predictor's None without a predictor.
+    The true score sums each bs-d block exactly and the blocks in order (the int-grid kernel:
     ``_block_scaled_dot``; the CUDA-core one: ``_blocks_in_order``);
     two_step's int-grid predictor is one exact dot rounded once
     (``_exact_int_dot``); ex_pred's, MXINT4's, partial's and threshold_ex's
@@ -562,11 +575,12 @@ def _split_score_sums(q: torch.Tensor, k_: torch.Tensor, fmt,
     CUDA-core kernel's predictors ``_blocks_in_order``; ELSA
     ``_elsa_scores``."""
     N, D = q.shape[-2:]
-    Sp = _round_up(k_.shape[-2], 32)
-    Dp = _round_up(max(D, 8), 32)
+    bs = block_size
+    Sp = _round_up(k_.shape[-2], max(32, bs))
+    Dp = _round_up(max(D, 8), bs)
     int_route = _int_route(fmt[0], pred_mode)
-    qb = _split_blocks(q, N, Dp, bfloat)
-    kb = _split_blocks(k_, Sp, Dp, bfloat)
+    qb = _split_blocks(q, N, Dp, bfloat, bs)
+    kb = _split_blocks(k_, Sp, Dp, bfloat, bs)
     # the kernels stage the quantized values as bf16 (exact on the int
     # grids; an MXFP value below bf16's 2^-133 rounds)
     qv, qe = quantize_blocks(qb, fmt, scale_bits, flush)
@@ -622,19 +636,20 @@ def _attention_ref(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
     fmt = FormatParams(ebits, mbits, emax, max_norm, 0.0)
     B, H, N, D = q.shape
     S = k_.shape[2]
-    Sp = _round_up(S, 32)
+    bs = block_size
+    Sp = _round_up(S, max(32, bs))
     shift = mbits - 2
     pred = pred_mode if approx and k < S else None
     if pred == "ELSA":
         _check_proj(proj, D)
     int_fmt = _int_route(ebits, pred)
     st, s_sel = _split_score_sums(q, k_, fmt, scale_bits, flush, bfloat, pred,
-                                  proj)
+                                  proj, bs)
     v32 = v.to(torch.float32)
     if bfloat == 16 and v.dtype != torch.bfloat16:
         v32 = bf16_round_half_away(v32)
     vt = torch.nn.functional.pad(v32, (0, 0, 0, Sp - S)).transpose(
-        -1, -2).reshape(B, H, D, Sp // 32, 32)
+        -1, -2).reshape(B, H, D, Sp // bs, bs)
     if int_fmt:  # the kernels' int8 grid points and exponents
         vm, ve = _mx_mantissas(vt, fmt, scale_bits, flush)
         vq = (vm * _pow2_sub(ve - shift)[..., None]).reshape(
@@ -654,21 +669,19 @@ def _attention_ref(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
         if s_sel is not None:
             s_sel = s_sel + brow
     attn = _attention_probs(st, s_sel, S, k=k, key_bits=key_bits,
-                            relaxed=relaxed, bfloat=bfloat, fmt=fmt,
-                            scale_bits=scale_bits, flush=flush,
-                            row_sum=row_sum, requantize=False)
+                            relaxed=relaxed, bfloat=bfloat, row_sum=row_sum)
 
     if relaxed:  # bf16 probabilities: key order
         out = _dot_in_order(attn, vq)
     else:
-        ab = attn.reshape(B, H, N, Sp // 32, 32)
+        ab = attn.reshape(B, H, N, Sp // bs, bs)
         if int_fmt:
             pm, pe = _mx_mantissas(ab, fmt, scale_bits, flush, nonneg=True)
             out = _block_scaled_dot(pm, pe, vm, ve, shift)
         else:
             pv, _ = quantize_blocks(ab, fmt, scale_bits, flush, nonneg=True)
             out = _blocks_in_order(_bf16(pv), vq.transpose(-1, -2).reshape(
-                B, H, D, Sp // 32, 32))
+                B, H, D, Sp // bs, bs))
         out = bf16_round_half_away(out) if bfloat == 16 else out
     return out.to(out_dtype)
 
@@ -713,14 +726,18 @@ def qkv_call_args(N: int, n_valid: int, D: int, kw) -> tuple:
             int(kw["ebits"]))
 
 
-def _qkv_lib(name: str, N: int, n_valid: int, D: int, kw):
-    """The library (the build part) that launches a K2 or K7 call; raises
-    where the kernel cannot take it."""
+def _check_qkv_shape(name: str, N: int, D: int):
     if N > MAX_TOKENS or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"{name} holds a head in shared memory and takes N <= "
             f"{MAX_TOKENS}, D <= {MAX_HEAD_DIM} (got N={N}, D={D}); the "
             "split entry (kernel K3 or K4) takes longer sequences")
+
+
+def _qkv_lib(name: str, N: int, n_valid: int, D: int, kw):
+    """The library (the build part) that launches a K2 or K7 call; raises
+    where the kernel cannot take it."""
+    _check_qkv_shape(name, N, D)
     part = _qkv_library(0).topk_attention_qkv_part(
         *qkv_call_args(N, n_valid, D, kw))
     if part < 0:
@@ -767,16 +784,21 @@ def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
     B, N, F = qkv.shape
     H = num_heads
     D = F // (3 * H)
-    lib = _qkv_lib("K2", N, N, D, kw)
     out = torch.empty(B, N, H * D, dtype=out_dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.topk_attention_qkv(
-            qkv.data_ptr(), out.data_ptr(), B, N, H, D,
-            int(qkv.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            *_launch_args(kw), stream)
-    if err:
-        raise RuntimeError(f"K2 launch failed with CUDA error {err}")
+    if block_size != 32:
+        _check_qkv_shape("K2", N, D)
+        _launch_blocks("K2", 0, (qkv, None, None), None, None, out,
+                       (B, H, N, N, D, N, 0), kw)
+    else:
+        lib = _qkv_lib("K2", N, N, D, kw)
+        with torch.cuda.device(qkv.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.topk_attention_qkv(
+                qkv.data_ptr(), out.data_ptr(), B, N, H, D,
+                int(qkv.dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), *_launch_args(kw), stream)
+        if err:
+            raise RuntimeError(f"K2 launch failed with CUDA error {err}")
     fused_topk_attention_qkv.launches += 1
     fused_topk_attention_qkv.sites[
         (tuple(qkv.shape), qkv.dtype, num_heads, tuple(kw.items()))] += 1
@@ -833,16 +855,21 @@ def fused_topk_attention_qkv_t(qk_t: torch.Tensor, v: torch.Tensor,
     if k < 1 or not 1 <= n_valid <= N:
         raise ValueError(f"need k >= 1 and 1 <= n_valid <= N={N}, got k={k}, "
                          f"n_valid={n_valid}")
-    lib = _qkv_lib("K7", N, n_valid, D, kw)
     out = torch.empty(B, N, H * D, dtype=out_dtype, device=qk_t.device)
-    with torch.cuda.device(qk_t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.topk_attention_qkv_t(
-            qk_t.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, int(n_valid),
-            H, D, Dp, int(qk_t.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), *_launch_args(kw), stream)
-    if err:
-        raise RuntimeError(f"K7 launch failed with CUDA error {err}")
+    if block_size != 32:
+        _check_qkv_shape("K7", N, D)
+        _launch_blocks("K7", 1, (qk_t, v, None), None, None, out,
+                       (B, H, N, int(n_valid), D, N, Dp), kw)
+    else:
+        lib = _qkv_lib("K7", N, n_valid, D, kw)
+        with torch.cuda.device(qk_t.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.topk_attention_qkv_t(
+                qk_t.data_ptr(), v.data_ptr(), out.data_ptr(), B, N,
+                int(n_valid), H, D, Dp, int(qk_t.dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), *_launch_args(kw), stream)
+        if err:
+            raise RuntimeError(f"K7 launch failed with CUDA error {err}")
     fused_topk_attention_qkv_t.launches += 1
     fused_topk_attention_qkv_t.sites[
         (tuple(qk_t.shape), tuple(v.shape), qk_t.dtype, num_heads,
@@ -950,6 +977,53 @@ def _launch_args(kw):
             int(kw["scale_bits"]))
 
 
+@functools.cache
+def _blocks_library() -> ctypes.CDLL:
+    lib = build.load(BLOCKS_SOURCE, BLOCK_DEFINES)
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib.topk_attention_blocks_workspace_bytes.argtypes = [i] * 12
+    lib.topk_attention_blocks_workspace_bytes.restype = ctypes.c_longlong
+    lib.topk_attention_blocks.argtypes = [i] + [p] * 8 + [i] * 11 + [f] + [
+        i] * 9 + [f, i, i, p]
+    lib.topk_attention_blocks.restype = i
+    return lib
+
+
+def _launch_blocks(name, entry, inputs, brow, pmat, out, dims, kw):
+    """Launch ``BLOCKS_SOURCE``'s kernel (K2, K7, K3 or K4 at a block size
+    other than 32) into ``out``: entry 0 K2, 1 K7, 2 K3/K4; inputs the
+    entry's tensors (K2: qkv; K7: qk_t, v; K3/K4: q, k, v); dims (B, H, N
+    query rows, S valid keys, D, the input's tokens, K7's rows per head).
+    The wrapper has checked the operands; raises where the kernel cannot
+    take the call."""
+    B, H, N, S, D, n_in, dp_in = dims
+    bs = kw["block_size"]
+    args = _launch_args(kw)
+    topk, approx, pred, ebits = args[0], args[2], args[3], args[8]
+    bits = 0 if pmat is None else pmat.shape[0]
+    lib = _blocks_library()
+    nbytes = lib.topk_attention_blocks_workspace_bytes(
+        entry, B, H, N, S, D, bs, topk, approx, pred, ebits, bits)
+    if nbytes <= 0:
+        raise NotImplementedError(
+            f"{name} at block {bs} takes S <= {MAX_TILED_KEYS} and a padded "
+            f"head dim <= {MAX_HEAD_DIM} (got N={N}, S={S}, D={D})")
+    dev = out.device
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    cos = None if pmat is None else _elsa_cos_table(bits, dev)
+    ptr = [None if t is None else t.data_ptr()
+           for t in (*inputs, brow, pmat, cos)]
+    with torch.cuda.device(dev):
+        err = lib.topk_attention_blocks(
+            entry, *ptr, ws.data_ptr(), out.data_ptr(), B, H, N, S, D, n_in,
+            dp_in, bs, int(inputs[0].dtype == torch.bfloat16),
+            int(out.dtype == torch.bfloat16), *args, bits,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} (block {bs}) launch failed with CUDA "
+                           f"error {err}")
+
+
 def _count(wrapper, q, k_, bias, proj, kw):
     wrapper.launches += 1
     wrapper.sites[(tuple(q.shape), tuple(k_.shape), q.dtype,
@@ -987,21 +1061,45 @@ def fused_topk_attention(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
                          kw)
 
 
+def check_split_shape(name: str, S: int, D: int) -> None:
+    """Raise where K3 (``name`` "K3") or K4 ("K4") cannot take S keys of
+    head dim D."""
+    if D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name} takes D <= {MAX_HEAD_DIM} (got D={D}); wider heads are "
+            "not ported (ROADMAP.md)")
+    if name == "K4" and S > MAX_TILED_KEYS:
+        raise NotImplementedError(
+            f"K4 takes S <= {MAX_TILED_KEYS} (got S={S}); beyond "
+            f"{MAX_TILED_KEYS} keys topk_attention takes the XLA path, as "
+            "the JAX package does (attention.py: the fused engine's masked "
+            "softmax, sparse_impl='gather', or the emulation engine, "
+            "custom_tpu='ref')")
+
+
 def _launch_split(name, wrapper, q, k_, v, bias, proj, kw):
     """Check and launch K3 (``name`` "K3") or K4 ("K4"): the pre-pass that
     quantizes each (row, head) cell's K side once into a workspace this
-    function allocates, then the attention kernel."""
-    tiled = int(name == "K4")
+    function allocates, then the attention kernel (at block 32; the blocks
+    kernel at the other blocks)."""
     (B, H, N, S, D), brow, pmat = _split_operands(name, q, k_, v, bias, proj,
                                                   kw)
-    if tiled and S > MAX_TILED_KEYS or D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"K4 takes S <= {MAX_TILED_KEYS} and D <= {MAX_HEAD_DIM} (got "
-            f"S={S}, D={D}); beyond {MAX_TILED_KEYS} keys the JAX package "
-            "takes its XLA path, whose port (the emulation engine) is not "
-            "done yet (ROADMAP.md)" if tiled else
-            f"K3 takes D <= {MAX_HEAD_DIM} (got D={D}); wider heads are not "
-            "ported (ROADMAP.md)")
+    check_split_shape(name, S, D)
+    out = torch.empty(B, H, N, D, dtype=kw["out_dtype"], device=q.device)
+    if kw["block_size"] == 32:
+        _launch_split_32(name, q, k_, v, brow, pmat, out, kw)
+    else:
+        _launch_blocks(name, 2, (q, k_, v), brow, pmat, out,
+                       (B, H, N, S, D, 0, 0), kw)
+    _count(wrapper, q, k_, bias, pmat, kw)
+    return out
+
+
+def _launch_split_32(name, q, k_, v, brow, pmat, out, kw):
+    """Launch K3 or K4 at block 32 into ``out`` (``_launch_split``)."""
+    tiled = int(name == "K4")
+    B, H, N, D = q.shape
+    S = k_.shape[2]
     args = _launch_args(kw)
     topk, approx, pred = args[0], args[2], args[3]
     part = _split_library(0).topk_attention_split_part(
@@ -1016,7 +1114,6 @@ def _launch_split(name, wrapper, q, k_, v, bias, proj, kw):
     ws = torch.empty(lib.topk_attention_split_workspace_bytes(
         B, H, S, D, topk, approx, pred, args[5], args[8]), dtype=torch.uint8,
         device=q.device)
-    out = torch.empty(B, H, N, D, dtype=kw["out_dtype"], device=q.device)
     bits = 0 if pmat is None else pmat.shape[0]
     cos = None if pmat is None else _elsa_cos_table(bits, q.device)
     with torch.cuda.device(q.device):
@@ -1030,8 +1127,6 @@ def _launch_split(name, wrapper, q, k_, v, bias, proj, kw):
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    _count(wrapper, q, k_, bias, pmat, kw)
-    return out
 
 
 def fused_topk_attention_tiled(q: torch.Tensor, k_: torch.Tensor,

@@ -3,7 +3,8 @@
 can be compared end to end within one run on one card.
 
     python3 mx_quantization_tpu_torch/tools/time_dit_steps.py \\
-        [--repo DIR] [--steps 20] [--images 32]
+        [--repo DIR] [--steps 20] [--images 32] [--save FILE.npz]
+        [--against FILE.npz]
 
 ``--repo`` is the root of the checkout whose ``mx_quantization_tpu_torch``
 is imported (default: the one this file lies in).  Run the trees in
@@ -14,7 +15,12 @@ ex_pred top-k k = 154 at key_bits 8, block 27 dense, bf16 activations; the
 default path (K1, K2) and the fused opt-ins (K5, K6, K7), each tier, two
 warm steps, then ``--steps`` steps timed on the host clock around a
 synchronized run.  Prints the card's name and power limit, one line per
-path and last one JSON object of ms per step.
+path and last one JSON object of ms per step.  ``--save`` writes each
+path's timed latents to an .npz, so that the trees' outputs can be
+compared (the noise is drawn from one seeded generator in one order, so
+equal trees give equal latents); ``--against`` prints, per path, whether
+this run's latents equal those of an earlier run's ``--save`` and their
+largest difference.
 """
 
 import argparse
@@ -32,6 +38,8 @@ def main():
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--images", type=int, default=32)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--against", default=None)
     args = ap.parse_args()
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
@@ -64,20 +72,30 @@ def main():
     fused = dataclasses.replace(base, fuse_ln_modulate=True, fuse_gelu=True,
                                 qkv_layout="split_t")
     labels = list(range(args.images))
-    out = {}
+    out, latents = {}, {}
     for name, qc in (("default", base), ("opt-ins", fused)):
         for contract in ("serving", "exact"):
             q = dataclasses.replace(qc, contract=contract)
             sample_dit(model, q, labels, gen, num_steps=2, device=dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sample_dit(model, q, labels, gen, num_steps=args.steps,
-                       device=dev)
+            lat = sample_dit(model, q, labels, gen, num_steps=args.steps,
+                             device=dev)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0) / args.steps
             out[f"{name} {contract}"] = ms
+            latents[f"{name} {contract}"] = lat.float().cpu().numpy()
             print(f"[step] {repo} DiT-XL/2 {name} {contract}: {ms:.2f} ms",
                   flush=True)
+    import numpy as np
+    if args.save:
+        np.savez(args.save, **latents)
+    if args.against:
+        other = np.load(args.against)
+        for key, lat in latents.items():
+            print(f"[latents] {key} against {args.against}: bit-equal "
+                  f"{np.array_equal(lat, other[key])}, max |diff| "
+                  f"{np.abs(lat - other[key]).max():.3e}", flush=True)
     print(json.dumps({"repo": repo, "device": smi, "ms_per_step": out}))
     return 0
 

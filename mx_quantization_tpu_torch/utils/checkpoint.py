@@ -19,7 +19,7 @@ loader's optional bicubic resize to another patch count is not ported
 from __future__ import annotations
 
 import pickle
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -181,11 +181,15 @@ def load_pixart_checkpoint(path: str, num_layers: int = 28
     return {k: v.detach().to(torch.float32) for k, v in out.items()}
 
 
-def load_deit_checkpoint(path: str, depth: int = 12
+def load_deit_checkpoint(path: str, depth: int = 12,
+                         interpolate_pos_embed_to: Optional[int] = None
                          ) -> Dict[str, torch.Tensor]:
     """Read a public DeiT checkpoint (timm VisionTransformer state dict,
     under a 'model' entry or bare) with ``torch.load`` and return a state
-    dict in the port's names, for ``ViT.load_state_dict``."""
+    dict in the port's names, for ``ViT.load_state_dict``.
+    ``interpolate_pos_embed_to``: a new number of patches, to which the
+    position table's patch grid is resized (``interpolate_pos_embed``; the
+    reference's main.py:617-630, for another resolution)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt)
     out = {"patch_embed.weight": sd["patch_embed.proj.weight"],
@@ -199,7 +203,27 @@ def load_deit_checkpoint(path: str, depth: int = 12
             for leaf in ("weight", "bias"):
                 key = f"blocks.{i}.{mod}.{leaf}"
                 out[key] = sd[key]
-    return {k: v.detach().to(torch.float32) for k, v in out.items()}
+    out = {k: v.detach().to(torch.float32) for k, v in out.items()}
+    if interpolate_pos_embed_to is not None:
+        out["pos_embed"] = interpolate_pos_embed(out["pos_embed"],
+                                                 interpolate_pos_embed_to)
+    return out
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, new_num_patches: int
+                          ) -> torch.Tensor:
+    """A (1, 1 + N, D) position table with its patch grid (sqrt N)^2
+    resized bicubically to (sqrt new_num_patches)^2, the class token's row
+    passed through (the JAX package's ``interpolate_pos_embed``: its
+    ``jax.image.resize`` bicubic, Keys' a = -0.5, through ``ops/resize.py``;
+    ``F.interpolate``'s bicubic is a = -0.75)."""
+    from ..ops.resize import resize
+    extra, grid = pos_embed[:, :1], pos_embed[:, 1:]
+    s_old = int(grid.shape[1] ** 0.5)
+    s_new = int(new_num_patches ** 0.5)
+    g = grid.reshape(1, s_old, s_old, -1)
+    g = resize(g, (1, s_new, s_new, g.shape[-1]), "bicubic")
+    return torch.cat([extra, g.reshape(1, s_new * s_new, -1)], dim=1)
 
 
 def _to_numpy(tree):

@@ -83,13 +83,15 @@ def evaluate(model: ViT, qcfg: VitQuantConfig,
 
 
 def imagenet_val_batches(data_path: str, batch_size: int = 100,
-                         img_size: int = 224, limit: Optional[int] = None):
+                         img_size: int = 224, limit: Optional[int] = None,
+                         native: bool = True):
     """Yield (images, labels) from an ImageNet-style folder tree
-    (val/<wnid>/*.JPEG), decoded with PIL (the reference's bicubic eval
-    transform; the native loader is not ported)."""
+    (val/<wnid>/*.JPEG).  Uses the native C++ loader where it builds
+    (``native/``), falling back to PIL (the reference's bicubic eval
+    transform), as the JAX package does."""
     from ..data.imagenet import iterate_imagenet
     yield from iterate_imagenet(data_path, batch_size, img_size, limit=limit,
-                                native=False)
+                                native=native)
 
 
 def build_argparser() -> argparse.ArgumentParser:

@@ -54,9 +54,11 @@ def _probe(x, H):
 
 
 def check_rows(got, want, pg, pw, vmax, mbits=8, contract="exact",
-               out_bf16=False):
+               out_bf16=False, block_size=32):
     """The criterion of the module docstring on (cells, N, D) outputs,
-    (cells, N, S) probed probabilities and each cell's max |v| (cells,)."""
+    (cells, N, S) probed probabilities and each cell's max |v| (cells,);
+    the exact tier's grid step is that of the probability's MX block of
+    ``block_size`` keys."""
     N, S = pg.shape[-2:]
     tol = dict(rtol=2.0 ** -8, atol=2e-5) if out_bf16 else TOL
     flip = (pg != pw).any(-1)  # (cells, N) query rows
@@ -67,14 +69,15 @@ def check_rows(got, want, pg, pw, vmax, mbits=8, contract="exact",
     if not flip.any():
         return
     # one grid step: a bf16 ulp (serving); the step of the MX grid of the
-    # probability's 32-key block (exact)
+    # probability's key block (exact)
     hi = np.maximum(pg, pw)[flip]
+    bs = block_size
     if contract == "serving":
         step = 2.0 ** -7 * hi
     else:
-        Sp = -(-S // 32) * 32
-        blk = np.pad(hi, ((0, 0), (0, Sp - S))).reshape(len(hi), -1, 32)
-        step = np.repeat(blk.max(-1), 32, axis=-1)[:, :S] * 2.0 ** -(mbits - 2)
+        Sp = -(-S // bs) * bs
+        blk = np.pad(hi, ((0, 0), (0, Sp - S))).reshape(len(hi), -1, bs)
+        step = np.repeat(blk.max(-1), bs, axis=-1)[:, :S] * 2.0 ** -(mbits - 2)
     dp = np.abs(pg - pw)[flip]
     assert ((dp > 0).sum(-1) <= 2).all()
     assert (dp <= step).all()
@@ -85,7 +88,7 @@ def check_rows(got, want, pg, pw, vmax, mbits=8, contract="exact",
 
 
 def assert_matches_jax(port, jax_fn, x, H, mbits=8, contract="exact",
-                       out_bf16=False):
+                       out_bf16=False, block_size=32):
     """port, jax_fn: (B, N, 3*H*D) float32 array -> (B, N, H*D) float32
     array.  The criterion of the module docstring."""
     B, N, F = x.shape
@@ -100,7 +103,8 @@ def assert_matches_jax(port, jax_fn, x, H, mbits=8, contract="exact",
     pg, pw = cells(port(_probe(x, H)), N), cells(jax_fn(_probe(x, H)), N)
     v = x.reshape(B, N, 3, H, D)[:, :, 2]  # (B, N, H, D)
     vmax = np.abs(v).max(axis=(1, 3)).reshape(B * H)
-    check_rows(got, want, pg, pw, vmax, mbits, contract, out_bf16)
+    check_rows(got, want, pg, pw, vmax, mbits, contract, out_bf16,
+               block_size)
 
 
 SPECS = dict(w_elem_format="int8", a_elem_format="int8", scale_bits=8,

@@ -67,7 +67,7 @@ def _probe(v):
 
 
 def assert_split_matches_jax(port, jax_fn, q, k, v, bias, mbits=8,
-                             contract="exact", out_bf16=False):
+                             contract="exact", out_bf16=False, block_size=32):
     """port, jax_fn: (q, k, v, bias) float32 arrays -> (B, H, N, D)."""
     S = k.shape[2]
     cells = q.shape[0] * q.shape[1]
@@ -79,7 +79,8 @@ def assert_split_matches_jax(port, jax_fn, q, k, v, bias, mbits=8,
     got, want = run(port, v), run(jax_fn, v)
     pg, pw = run(port, _probe(v))[..., :S], run(jax_fn, _probe(v))[..., :S]
     vmax = np.abs(v).max(axis=(2, 3)).reshape(cells)
-    check_rows(got, want, pg, pw, vmax, mbits, contract, out_bf16)
+    check_rows(got, want, pg, pw, vmax, mbits, contract, out_bf16,
+               block_size)
 
 
 def _t(a):

@@ -95,7 +95,7 @@ def _probe_rows(fn, q, k, v, bias, rows):
 
 
 def assert_long_matches_jax(port, jax_fn, q, k, v, bias, mbits=8,
-                            contract="exact", out_bf16=False):
+                            contract="exact", out_bf16=False, block_size=32):
     """port, jax_fn: (q, k, v, bias) numpy arrays -> (B, H, N, D); the
     criterion of the module docstring."""
     B, H, N, _ = q.shape
@@ -113,7 +113,8 @@ def assert_long_matches_jax(port, jax_fn, q, k, v, bias, mbits=8,
         pg[:, rows] = _probe_rows(port, q, k, v, bias, rows)
         pw[:, rows] = _probe_rows(jax_fn, q, k, v, bias, rows)
     vmax = np.abs(v.astype(np.float32)).max(axis=(2, 3)).reshape(B * H)
-    check_rows(got, want, pg, pw, vmax, mbits, contract, out_bf16)
+    check_rows(got, want, pg, pw, vmax, mbits, contract, out_bf16,
+               block_size)
 
 
 def _t(a):

@@ -156,12 +156,21 @@ def test_imagenet_batches_match_jax(image_tree, shard):
         assert gx.dtype == np.float32 and gx.shape[1:] == (3, 24, 24)
         np.testing.assert_array_equal(gx, wx)
         np.testing.assert_array_equal(gy, wy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(imagenet.iterate_imagenet(image_tree, native=True))
+    # the native loader decodes JPEGs only: these PNGs give zeros (where
+    # PIL decodes them, so the zeros pin the native path) and their labels
+    # on both sides (tests/test_torch_native_loader.py holds it on JPEGs)
+    kw["native"] = True
+    pil, got = got, list(imagenet.iterate_imagenet(image_tree, **kw))
+    for (gx, gy), (wx, wy), (px, _) in zip(got, jax_imagenet.iterate_imagenet(
+            image_tree, **kw), pil):
+        assert not gx.any() and px.any()
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gy, wy)
 
 
 def test_val_batches_feed_evaluate(image_tree):
-    """``imagenet_val_batches`` (PIL decode) through ``evaluate``."""
+    """``imagenet_val_batches`` (its default, the native loader) through
+    ``evaluate``."""
     cfg = VitConfig(img_size=24, patch_size=8, num_classes=10, embed_dim=64,
                     depth=1, num_heads=2)
     model = init_vit(cfg, torch.Generator().manual_seed(0), "cpu")

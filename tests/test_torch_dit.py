@@ -35,6 +35,7 @@ must sit closer to JAX's bf16 block than JAX's bf16 block sits to JAX's f32
 block, and no farther from the f32 block than JAX's bf16 block is (20%).
 """
 
+import dataclasses
 import importlib
 import os
 
@@ -178,7 +179,8 @@ def check_stages(monkeypatch, calls, model, jparams, jcfg, jq):
                                                pspecs, pcfg).float(),
             lambda a: jax_qkv_attention(jnp.asarray(a), H, scale, specs,
                                         cfg).astype(jnp.float32),
-            _np(qp), H, contract=pcfg.contract)
+            _np(qp), H, contract=pcfg.contract,
+            block_size=pspecs.block_size)
         return jnp.asarray(_np(out)).astype(cfg.out_dtype)
 
     monkeypatch.setattr(JAX_LINEAR, "quantize_mx_serving", quantize)
@@ -263,6 +265,28 @@ def test_forward_matches_jax(models, contract, monkeypatch):
     check_stages(monkeypatch, stages, model, jparams, jcfg,
                  JaxQuantConfig(mx_specs=jax_specs(), contract=contract,
                                 **QKW))
+
+
+def test_forward_at_block_16_matches_jax(models, monkeypatch):
+    """A 2-block DiT (hidden 288, 4 heads of D = 72, 16 tokens), serving
+    tier, MXINT8 in 16-element blocks: every stage held to JAX's on the
+    port's stage input (``check_stages``), K2's plain version at block 16
+    in every attention call."""
+    jcfg, jparams, model = models
+    x, t, y = _inputs(2)
+    specs = dataclasses.replace(dit_mx_specs(), block_size=16)
+    calls = record_stages(monkeypatch)
+    got = dit_forward(model, torch.from_numpy(x), torch.from_numpy(t),
+                      torch.from_numpy(y).long(),
+                      DiTQuantConfig(mx_specs=specs, contract="serving",
+                                     **QKW))
+    monkeypatch.undo()
+    assert got.shape == (2, 8, 8, 8) and torch.isfinite(got).all()
+    attn = [c for c in calls if c[0] == "fused_qkv_topk_attention"]
+    assert len(attn) == 2 and all(c[1][3].block_size == 16 for c in attn)
+    check_stages(monkeypatch, calls, model, jparams, jcfg,
+                 JaxQuantConfig(mx_specs=dataclasses.replace(
+                     jax_specs(), block_size=16), contract="serving", **QKW))
 
 
 @pytest.mark.parametrize("contract", ["exact", "serving"])

@@ -387,7 +387,7 @@ def test_k4_matches_k3(cuda, case, contract, in_dtype):
 def test_k4_refuses_what_it_does_not_serve(cuda):
     q = torch.zeros(1, 1, 600, 72, device=cuda)
     longer = torch.zeros(1, 1, MAX_TILED_KEYS + 1, 72, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="XLA path"):
         fused_topk_attention_tiled(q, longer, longer, k=8, scale=0.125)
     wide = torch.zeros(1, 1, 600, 136, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -1110,3 +1110,133 @@ def test_tiny_training_step_on_card_matches_cpu(cuda, model):
         assert torch.isfinite(a).all()
         close = torch.isclose(a, b, rtol=2.0 ** -7, atol=1e-6)
         assert close.float().mean() >= 0.99
+
+
+_BLOCKS = (8, 16, 64, 128)
+_ALL_MODES = QKV_PRED_MODES + ("ELSA",)
+
+
+@pytest.mark.parametrize("bs", _BLOCKS)
+@pytest.mark.parametrize("mode", QKV_PRED_MODES)
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+def test_k2_k7_at_block_sizes(cuda, bs, mode, fmt):
+    """K2 and K7 at the block sizes other than 32 (the blocks kernel), bit
+    for bit to their plain versions: every qkv predictor on an int and an
+    MXFP grid, both tiers, bf16 in at key_bits 8 (DiT's) and f32 in at
+    key_bits 32, N = 200 (keys padded past a block) and the dense call."""
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    H, D, N = 2, 72, 200
+    for contract, dtype, kb, k in (("serving", torch.bfloat16, 8, 47),
+                                   ("exact", torch.float32, 32, 47),
+                                   ("exact", torch.bfloat16, 8, N)):
+        qkv = (2 * _normal((2, N, 3 * H * D), bs + len(mode))).to(dtype).to(
+            cuda)
+        kw = dict(k=k, scale=D ** -0.5, key_bits=kb, block_size=bs,
+                  bfloat=16 if dtype == torch.bfloat16 else 0, flush=True,
+                  pred_mode=mode, contract=contract, out_dtype=dtype,
+                  ebits=ebits, mbits=mbits, emax=emax, max_norm=max_norm)
+        got = fused_topk_attention_qkv(qkv, H, **kw)
+        want = fused_topk_attention_qkv_ref(qkv, H, **kw)
+        Dp = -(-D // bs) * bs
+        qk = torch.nn.functional.pad(
+            qkv[..., :2 * H * D].reshape(2, N, 2, H, D), (0, Dp - D))
+        qk_t = qk.permute(2, 3, 4, 0, 1).reshape(2 * H * Dp, 2, N)
+        k7 = fused_topk_attention_qkv_t(qk_t.contiguous(),
+                                        qkv[..., 2 * H * D:].contiguous(), H,
+                                        n_valid=N, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want), (contract, kb, k)
+        assert torch.equal(k7, got), (contract, kb, k)
+
+
+@pytest.mark.parametrize("bs", _BLOCKS)
+@pytest.mark.parametrize("mode", _ALL_MODES)
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_split_at_block_sizes(cuda, bs, mode, kernel):
+    """K3 and K4 at the block sizes other than 32, bit for bit to their
+    plain version: every predictor (ELSA square, the others 120 queries
+    against 90 keys with the caption bias), f32 in with flush at key_bits
+    32 in the exact tier, bf16 in at key_bits 8 in the serving tier; the
+    int8 grid, and fp8_e4m3 at two block sizes."""
+    fmt = "fp8_e4m3" if bs in (16, 128) else "int8"
+    ebits, mbits, emax, max_norm, _ = format_params(fmt)
+    S = 120 if mode == "ELSA" else 90
+    fn = fused_topk_attention if kernel == "K3" else \
+        fused_topk_attention_tiled
+    for contract, dtype, kb in (("exact", torch.float32, 32),
+                                ("serving", torch.bfloat16, 8)):
+        args = [t if t is None else t.to(cuda) for t in _k3_inputs(
+            2, 2, 120, S, 72, dtype, bs + 3, mode != "ELSA")]
+        kw = dict(k=29, scale=72 ** -0.5, key_bits=kb, block_size=bs,
+                  bfloat=16 if dtype == torch.bfloat16 else 0,
+                  flush=dtype == torch.float32, pred_mode=mode,
+                  contract=contract, out_dtype=dtype, ebits=ebits,
+                  mbits=mbits, emax=emax, max_norm=max_norm)
+        got = fn(*args, _proj(mode, cuda), **kw)
+        want = fused_topk_attention_ref(*args, _proj(mode, cuda), **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want), contract
+
+
+@pytest.mark.parametrize("bs", _BLOCKS)
+def test_k4_long_at_block_sizes(cuda, bs):
+    """K4 at 1024 and 4096 keys (DiT-512's and PixArt-1024's lengths) at
+    the block sizes other than 32, bit for bit, both tiers."""
+    for N, k in ((1024, 154), (4096, 77)):
+        args = [t.to(cuda) for t in _k3_inputs(1, 2, 64, N, 72,
+                                                torch.bfloat16, bs, False)[:3]]
+        for contract in ("exact", "serving"):
+            kw = dict(k=k, scale=72 ** -0.5, key_bits=8, block_size=bs,
+                      bfloat=16, pred_mode="two_step_leading_ones",
+                      contract=contract, out_dtype=torch.bfloat16)
+            got = fused_topk_attention_tiled(*args, **kw)
+            want = fused_topk_attention_ref(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (N, contract)
+
+
+@pytest.mark.parametrize("bs", _BLOCKS)
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("C", [384, 1152, 2304])
+def test_k5_at_block_sizes(cuda, bs, fmt, C):
+    """K5 at the block sizes other than 32, bit for bit: rows in registers
+    (384, 1152) and in shared memory (2304), bf16 in with the bf16 round
+    and f32 in with flush."""
+    x = (3 * _normal((2, 40, C), bs) + 0.5).to(cuda)
+    shift, scale = ((0.3 * _normal((2, C), bs + 1 + i)).to(cuda)
+                    for i in range(2))
+    for dtype, bfloat, flush in ((torch.bfloat16, 16, False),
+                                 (torch.float32, 0, True)):
+        kw = dict(elem_format=fmt, block_size=bs, flush=flush, bfloat=bfloat)
+        got = ln_modulate_quantize(x.to(dtype), shift, scale, **kw)
+        want = ln_modulate_quantize_ref(x.to(dtype), shift, scale, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), dtype
+
+
+@pytest.mark.parametrize("bs", _BLOCKS)
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+def test_k1_k6_at_block_sizes(cuda, bs, fmt):
+    """K1 and K6 at the block sizes other than 32, bit for bit, at DiT's
+    sites cut to 2 images: the linears' bf16 inputs (1152, 4608 channels)
+    and the adaLN's f32 condition for K1, fc2's input for K6 (tanh and
+    erf), at DiT's bfloat 16 and PixArt's f32 flush."""
+    for shape, dtype in (((2, 64, 1152), torch.bfloat16),
+                         ((2, 64, 4608), torch.bfloat16), ((2, 1152),
+                                                           torch.float32)):
+        x = (3 * _normal(shape, bs)).to(dtype).to(cuda)
+        for bfloat, flush in ((16, False), (0, True)):
+            kw = dict(flush=flush, bfloat=bfloat)
+            got = mx_quantize(x, fmt, bs, 8, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, mx_quantize_ref(x, fmt, bs, 8, **kw))
+            if shape[-1] != 4608:
+                continue
+            for approximate in (True, False):
+                kw6 = dict(kw, elem_format=fmt, block_size=bs,
+                           approximate=approximate)
+                got = gelu_quantize(x, **kw6)
+                torch.cuda.synchronize()
+                assert torch.equal(got, gelu_quantize_ref(x, **kw6))

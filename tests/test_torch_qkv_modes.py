@@ -15,6 +15,8 @@ each with at most two probabilities one grid step apart, the probabilities
 read through probes that set v to the identity over D keys at a time.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -123,9 +125,10 @@ def test_k7_plain_past_256_tokens_matches_jax():
 def test_gates_equal_jax(mode):
     """The port's qkv gate and DiT's split-emission gate return JAX's for
     each mode, N in {256, 257, 384, 512, 513}, with and without the
-    predictor, at DiT's specs (bfloat 16) and DeiT's (bfloat 32)."""
-    for bfloat in (16, 32):
-        specs = dict(SPECS, bfloat=bfloat)
+    predictor, at DiT's specs (bfloat 16) and DeiT's (bfloat 32), at every
+    MX block size the kernels take (JAX's gate has no block term)."""
+    for bfloat, bs in itertools.product((16, 32), (8, 16, 32, 64, 128)):
+        specs = dict(SPECS, bfloat=bfloat, block_size=bs)
         jspecs, pspecs = finalize_mx_specs(specs), port_specs(specs)
         for approx in (True, False):
             cfg = dict(mx_quant=True, top_k=True, k=20, approx_flag=approx,

@@ -97,7 +97,7 @@ def split_t_operands(qkv: np.ndarray, H: int, Dp: int):
 
 
 def assert_k7_matches_jax(port, jax_fn, qk_t, v, H, contract="exact",
-                          mbits=8):
+                          mbits=8, block_size=32):
     """port, jax_fn: (qk_t, v) float32 arrays -> (B, N, H*D) float32.  The
     criterion of the module docstring."""
     B, N, F = v.shape
@@ -120,7 +120,7 @@ def assert_k7_matches_jax(port, jax_fn, qk_t, v, H, contract="exact",
         pw.append(cells(jax_fn(qk_t, probe), D)[..., :len(keys)])
     vmax = np.abs(v.reshape(B, N, H, D)).max(axis=(1, 3)).reshape(B * H)
     check_rows(got, want, np.concatenate(pg, -1), np.concatenate(pw, -1),
-               vmax, mbits, contract)
+               vmax, mbits, contract, block_size=block_size)
 
 
 def _k7_kw(k, D, contract, n_valid):
