@@ -7,9 +7,10 @@ Needs one CUDA GPU (Hopper: the CUDA kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
   2. build: K2 and K7 (one source, built in six parts), K3 and K4 (one
-     source, built in five parts), K5, and K2/K7/K3/K4 at the block sizes
-     other than 32 (one source) from csrc/, one nvcc each, started together
-     (K1 and K6 compile through Triton's JIT)
+     source, built in five parts), K5, K2/K7/K3/K4 at the block sizes
+     other than 32 (one source) and K8 (the ablation tools' kernel) from
+     csrc/, one nvcc each, started together (K1 and K6 compile through
+     Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
      shapes (bf16/f32 in, bfloat 0/16), at the PixArt sites (f32 in,
      flush, bfloat 0/32) and at DeiT's five widths (100 x 197 rows, f32,
@@ -76,12 +77,23 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      at DiT-XL/2 512^2's and, at 16 and 64, PixArt-alpha 1024^2's self
      site, K1, K5 and K6 at DiT's sites), timed at 16 and 64; then
      DiT-XL/2 256^2 at full width, 32 images with CFG, at blocks 16 and 64
-     in each tier (10 steps, cut from 100), the fused opt-ins at block 16
-     (serving, 10 steps), ELSA at block 64 (K3; serving, 2 steps),
+     in each tier (5 steps, cut from 100), the fused opt-ins at block 16
+     (serving, 5 steps), ELSA at block 64 (K3; serving, 2 steps),
      DiT-XL/2 512^2 at block 16 (K4; serving, 2 steps) and DeiT-small at
      block 16 (2 batches of 100), each with its launch counts asserted
      beside the block size; then every call site those paths gave a
      kernel, bit for bit against its plain version
+  7c. the ablation tools' path (K8, csrc/topk_attention_ablate.cu): the
+     port's four tools (mx_quantization_tpu_torch/tools/attnk_bench.py,
+     attnk3_bench.py, servingk_bench.py, passprice_bench.py) run every
+     mode string of their TPU counterparts through ``run`` at the TPU
+     tools' point (256 cells of 256 tokens, D = 72, k = 154, bf16), with
+     every count set to 0 just before and read just after: each variant
+     bit for bit against its plain version, then timed, and its output
+     against the port's K3 in its tier: bit for bit in exactly the modes
+     of ``ablate_common.EQUAL_TO_PROD`` (the all-on exact and serving
+     words among them); K8 launched by every variant and no kernel but K3 (the
+     tools' prod); every model path of 7 and 8 launches K8 0 times
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
@@ -225,7 +237,8 @@ DEIT_POINTS = (("deit_tiny_patch16_224", "ex_pred", 80),
 # phase near 100 s: a DiT step at these blocks takes ~0.7-0.9 s)
 OTHER_BLOCKS = (8, 16, 64, 128)
 TIMED_BLOCKS = (16, 64)
-BLOCK_STEPS = 10
+# 10 steps until phase 7c came in (5 runs at ~0.7-0.9 s a step: ~20 s)
+BLOCK_STEPS = 5
 BLOCK_SHORT_STEPS = 2
 BLOCK_DEIT_BATCHES = 2
 # K3's and K4's predictors beyond ex_pred and two_step
@@ -1061,9 +1074,13 @@ def main():
     from mx_quantization_tpu_torch.ops.kernels import build
     from mx_quantization_tpu_torch.ops.kernels import \
         ln_modulate_quantize as lnq
+    from mx_quantization_tpu_torch.ops.kernels import topk_ablate as ab
     from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
     from mx_quantization_tpu_torch.predictors.elsa import orthogonal_matrix
+    from mx_quantization_tpu_torch.tools import ablate_common as abc
     from mx_quantization_tpu_torch.tools import serving_bench as sb
+    from mx_quantization_tpu_torch.tools.passprice_bench import \
+        deltas as passprice_deltas
     from mx_quantization_tpu_torch.ops.kernels.quantize import (
         gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
     from mx_quantization_tpu_torch.utils.prequantize import prequantize_weights
@@ -1078,11 +1095,13 @@ def main():
     K4 = "fused_topk_attention_tiled"
     K5, K6, K7 = "ln_modulate_quantize", "gelu_quantize", \
         "fused_topk_attention_qkv_t"
+    K8 = "ablate_attention"
     wrappers = {K1: mx_quantize, K2: ta.fused_topk_attention_qkv,
                 K3: ta.fused_topk_attention,
                 K4: ta.fused_topk_attention_tiled,
                 K5: lnq.ln_modulate_quantize,
-                K6: gelu_quantize, K7: ta.fused_topk_attention_qkv_t}
+                K6: gelu_quantize, K7: ta.fused_topk_attention_qkv_t,
+                K8: ab.ablate_attention}
 
     # ---- 1. device
     smi = subprocess.run(
@@ -1106,7 +1125,7 @@ def main():
     t0 = time.perf_counter()
     sources = (*ta.qkv_builds(), *ta.split_builds(),
                (lnq.SOURCE, lnq.DEFINES),
-               (ta.BLOCKS_SOURCE, ta.BLOCK_DEFINES))
+               (ta.BLOCKS_SOURCE, ta.BLOCK_DEFINES), (ab.SOURCE, ()))
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(lambda sd: build.build(*sd), sources))
     print(f"[build] {[lib.name for lib in libs]} in "
@@ -2389,6 +2408,69 @@ def main():
           "bit-equal", flush=True)
     stamp("block sizes phase done")
 
+    # 7c. the ablation tools' path (K8): every mode string of the four TPU
+    # tools through the port's tools at their point, with every count set
+    # to 0 just before and read just after; ``run`` holds each variant bit
+    # for bit to its plain version before it times it, and compares its
+    # output with the port's K3 in its tier: the modes of
+    # ``EQUAL_TO_PROD`` must equal K3 and no other may
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+        w.sites.clear()
+    t0 = time.perf_counter()
+    ablate_rows = {tool: abc.run(table, "cuda", abc.CELLS)
+                   for tool, table in abc.tool_tables().items()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    path_launches["ablation tools"] = counts
+    rows = [r for rs in ablate_rows.values() for r in rs]
+    if counts[K8] != sum(r["launches"] for r in rows) or \
+            any(r["launches"] < abc.REPS for r in rows):
+        fail(f"ablation tools: K8 launched {counts[K8]} times, "
+             f"{[(r['variant'], r['launches']) for r in rows]} by variant")
+    if any(c for n, c in counts.items() if n not in (K3, K8)):
+        fail(f"ablation tools: launches {counts}: only K8 and K3 (prod)")
+    for tool, rs in ablate_rows.items():
+        for r in rs:
+            print(f"[ablate] {tool} {r['variant']} ({r['passes']}; layout "
+                  f"{r['layout']}, {r['key_form']}, group {r['group']}): "
+                  f"{r['ms']:.4f} ms x{r['launches']} (plain "
+                  f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']}); bit-equal to its plain version; "
+                  f"{'equal to' if r['equal_to_prod'] else 'differs from'}"
+                  f" K3 {r['tier']} (max |diff| {r['max_diff']:.4g})",
+                  flush=True)
+        equal = tuple(r["variant"] for r in rs if r["equal_to_prod"])
+        if equal != abc.EQUAL_TO_PROD[tool]:
+            fail(f"ablation tools: {tool}'s modes {equal} equal K3, "
+                 f"{abc.EQUAL_TO_PROD[tool]} should")
+    _, ladder = passprice_deltas(ablate_rows["passprice_bench"])
+    print("[ablate] passprice ladder, ms and the delta from the rung before: "
+          + ", ".join(f"{n} {t:.4f}" + ("" if d is None else f" ({d:+.4f})")
+                      for n, t, d in ladder), flush=True)
+    ablate_kernels = []
+    for site in sorted({r["site"] for r in rows}):
+        rs = [r for r in rows if r["site"] == site]
+        ablate_kernels.append(dict(
+            name=f"{K8} ({site})", route="cuda",
+            source="mx_quantization_tpu_torch/csrc/topk_attention_ablate.cu",
+            replaces=site, launches=sum(r["launches"] for r in rs),
+            max_abs_err=max(r["max_abs_err"] for r in rs),
+            **{key: sum(r[key] for r in rs) / len(rs)
+               for key in ("ms", "plain_ms", "bound_ms")},
+            bound_by=collections.Counter(
+                r["bound_by"] for r in rs).most_common(1)[0][0],
+            library_ms=None,
+            variants=[{key: r[key] for key in (
+                "variant", "word", "layout", "key_form", "group", "ms",
+                "plain_ms", "bound_ms", "bound_by", "launches",
+                "equal_to_prod", "max_diff")} for r in rs]))
+    print(f"[ablate] {len(rows)} variants over {len(ablate_kernels)} TPU "
+          f"sites in {dt:.1f} s, launches {counts}", flush=True)
+    stamp("ablation tools phase done")
+
     # 7. DiT-XL/2 256^2 on the emulation engine (dit_mx_specs("ref"), the
     # JAX CLI's --engine ref: f32 activations, weights quantized on the
     # fly), EMULATION_DIT_IMAGES images with CFG, exact tier: no kernel
@@ -3057,6 +3139,7 @@ def main():
             bound_by=collections.Counter(
                 st["bound_by"] for st in sites).most_common(1)[0][0],
             library_ms=None, sites=sites))
+    kernels += ablate_kernels
     stamp("kernel times done")
     print(json.dumps({"tiers": tiers, "servers": servers,
                       "endtask": endtask_stats, "training": training_stats,

@@ -257,9 +257,16 @@ def _block_scaled_dot(am: torch.Tensor, ae: torch.Tensor, bm: torch.Tensor,
     (..., M, P).  Each block's sum is exact (an integer below 2^24, as the
     kernels' int8 mma gives it); in f32 it is multiplied by 2^(ae - shift),
     then by 2^(be - shift), and the blocks are added in order."""
+    return _scaled_blocks(am, _pow2_sub(ae - shift), bm,
+                          _pow2_sub(be - shift))
+
+
+def _scaled_blocks(am: torch.Tensor, pa: torch.Tensor, bm: torch.Tensor,
+                   pb: torch.Tensor) -> torch.Tensor:
+    """``_block_scaled_dot`` with each block's multipliers pa (..., M, nb)
+    and pb (..., P, nb) given."""
     blk = torch.einsum("...mkd,...pkd->...mpk", am.to(torch.float64),
                        bm.to(torch.float64)).to(torch.float32)
-    pa, pb = _pow2_sub(ae - shift), _pow2_sub(be - shift)
     out = None
     for i in range(blk.shape[-1]):
         term = blk[..., i] * pa[..., :, None, i] * pb[..., None, :, i]

@@ -3,7 +3,8 @@ the card (K1: MX quantize, Triton; K2: fused qkv top-k attention, CUDA;
 K3: split q/k/v top-k attention, CUDA, every predictor mode; K4: its
 query-tiled long-sequence path, CUDA; K5: LN + modulate + MX quantize,
 CUDA; K6: GELU + MX quantize, Triton; K7: split-emission qkv top-k
-attention, CUDA), K1 at the end-task path's sites (T5-XXL, CLIP), and the
+attention, CUDA; K8: the TPU ablation tools' pass-switched attention,
+CUDA), K1 at the end-task path's sites (T5-XXL, CLIP), and the
 slices' forwards on the card against the same forwards on the plain
 versions.
 
@@ -27,6 +28,7 @@ from mx_quantization_tpu_torch.ops.kernels.ln_modulate_quantize import (
     MAX_CHANNELS, ln_modulate_quantize, ln_modulate_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels.quantize import (
     gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
+from mx_quantization_tpu_torch.ops.kernels import topk_ablate
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
     MAX_TILED_KEYS, QKV_PRED_MODES, fused_topk_attention,
     fused_topk_attention_qkv,
@@ -35,6 +37,7 @@ from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
     fused_topk_attention_tiled)
 from mx_quantization_tpu_torch.ops.linear import mm_f32
 from mx_quantization_tpu_torch.predictors.elsa import orthogonal_matrix
+from mx_quantization_tpu_torch.tools import ablate_common
 from mx_quantization_tpu_torch.utils.prequantize import prequantize_weights
 from mx_quantization_tpu_torch.workloads.dit import dit_mx_specs, sample_dit
 from mx_quantization_tpu_torch.workloads.pixart import (pixart_mx_specs,
@@ -1240,3 +1243,54 @@ def test_k1_k6_at_block_sizes(cuda, bs, fmt):
                 got = gelu_quantize(x, **kw6)
                 torch.cuda.synchronize()
                 assert torch.equal(got, gelu_quantize_ref(x, **kw6))
+
+
+_ABLATE = sorted(ablate_common.distinct_variants().items(),
+                 key=lambda kv: kv[1][0])
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("var,modes", _ABLATE,
+                         ids=["/".join(m[0]) for _, m in _ABLATE])
+def test_k8_matches_plain(cuda, var, modes, layout):
+    """K8 (the ablation tools' pass-switched kernel) at every word the four
+    tools use, bit for bit against its plain version, at 16 cells of the
+    tools' shape, in both operand layouts."""
+    var = var._replace(layout=layout)
+    q, k_, v = ablate_common.inputs(16, cuda, seed=3, layout=layout)
+    got = ablate_common.call(var, q, k_, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ablate_common.call(var, q, k_, v, plain=True))
+
+
+@pytest.mark.parametrize("tier", ["exact", "serving"])
+def test_k8_all_on_words_equal_k3(cuda, tier):
+    """The all-on exact and serving words equal the port's K3 kernel at the
+    tools' point, bit for bit."""
+    q, k_, v = ablate_common.inputs(16, cuda, seed=4)
+    word = topk_ablate.EXACT if tier == "exact" else topk_ablate.SERVING
+    var = ablate_common.Variant(word, 0, "row8", tier, "")
+    got = ablate_common.call(var, q, k_, v)
+    launches = fused_topk_attention.launches
+    want = ablate_common.prod(tier, q, k_, v)
+    torch.cuda.synchronize()
+    assert fused_topk_attention.launches == launches + 1
+    assert torch.equal(got, want)
+
+
+def test_k8_counts_launches_and_refuses_outside_its_domain(cuda):
+    q, k_, v = ablate_common.inputs(2, cuda)
+    before = topk_ablate.ablate_attention.launches
+    topk_ablate.ablate_attention(q, k_, v, passes=topk_ablate.SERVING,
+                                 k=154, scale=72 ** -0.5)
+    assert topk_ablate.ablate_attention.launches == before + 1
+    for bad in (dict(k=300), dict(key_form="col16", group=3),
+                dict(passes=topk_ablate.SEL)):
+        kw = dict(passes=topk_ablate.SERVING, k=154, scale=1.0)
+        kw.update(bad)
+        with pytest.raises((ValueError, NotImplementedError)):
+            topk_ablate.ablate_attention(q, k_, v, **kw)
+    wide = torch.zeros(2, 256, 160, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        topk_ablate.ablate_attention(wide, wide, wide, passes=0, k=154,
+                                     scale=1.0)
