@@ -8,9 +8,9 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
   1. device: the card's name and power limit; TF32 off
   2. build: K2 and K7 (one source, built in six parts), K3 and K4 (one
      source, built in five parts), K5, K2/K7/K3/K4 at the block sizes
-     other than 32 (one source) and K8 (the ablation tools' kernel) from
-     csrc/, one nvcc each, started together (K1 and K6 compile through
-     Triton's JIT)
+     other than 32 (one source), K8 (the ablation tools' kernel) and K9,
+     K10 and K11 (the measurement tools' kernels) from csrc/, one nvcc
+     each, started together (K1 and K6 compile through Triton's JIT)
   3. K1 (MX quantize) against its plain version, bit for bit: at the DiT
      shapes (bf16/f32 in, bfloat 0/16), at the PixArt sites (f32 in,
      flush, bfloat 0/32) and at DeiT's five widths (100 x 197 rows, f32,
@@ -94,6 +94,19 @@ CUDA toolkit's nvcc.  Phases, in order; any failure exits nonzero:
      of ``ablate_common.EQUAL_TO_PROD`` (the all-on exact and serving
      words among them); K8 launched by every variant and no kernel but K3 (the
      tools' prod); every model path of 7 and 8 launches K8 0 times
+  7d. the measurement tools' path (K9, csrc/mx_matmul_ablation.cu; K10,
+     csrc/kth_select.cu; K11, csrc/lane_quantize.cu): the port's
+     mx_matmul_ablation (DiT-XL/2's four linears at 16384 rows, MXINT8,
+     block 32), kth_bench (256 cells of 256 x 256, k = 154, the three
+     count strategies) and lanequant_bench (DiT-XL/2's fc2 and qkv inputs
+     at 16384 rows, bf16, int8 and fp8_e4m3, bfloat 16 and 0) through
+     ``run`` at the TPU tools' points, with every count set to 0 just
+     before and read just after: each variant bit for bit against its
+     plain version, then timed; K11 equal to K1 at every site, K10's three
+     strategies equal to torch.kthvalue, K9 within K 2^-24 sum |Q(A) Q(B)|
+     of the unfused path (K1 and a cuBLAS bf16 GEMM, f32 out); K9, K10 and
+     K11 launched by every variant and no kernel but K1 (the tools'
+     comparisons); every model path of 7 and 8 launches K9-K11 0 times
   8. the PixArt slice: PixArt-alpha 256^2 at full width (random weights from
      a seed), 100 prompts with CFG (200 rows), synthetic (100, 120, 4096)
      caption embeds with varying mask lengths, 20 DPM-Solver++ steps, each
@@ -1071,13 +1084,19 @@ def main():
                                                       init_vit, layer_norm,
                                                       vit_embed, vit_forward)
     from mx_quantization_tpu_torch.ops.linear import linear
-    from mx_quantization_tpu_torch.ops.kernels import build
+    from mx_quantization_tpu_torch.ops.kernels import build, tpu_site
+    from mx_quantization_tpu_torch.ops.kernels import kth_select as kthsel
+    from mx_quantization_tpu_torch.ops.kernels import lane_quantize as laneq
+    from mx_quantization_tpu_torch.ops.kernels import mx_matmul as mxmm
     from mx_quantization_tpu_torch.ops.kernels import \
         ln_modulate_quantize as lnq
     from mx_quantization_tpu_torch.ops.kernels import topk_ablate as ab
     from mx_quantization_tpu_torch.ops.kernels import topk_attention as ta
     from mx_quantization_tpu_torch.predictors.elsa import orthogonal_matrix
     from mx_quantization_tpu_torch.tools import ablate_common as abc
+    from mx_quantization_tpu_torch.tools import kth_bench as kth_tool
+    from mx_quantization_tpu_torch.tools import lanequant_bench as lane_tool
+    from mx_quantization_tpu_torch.tools import mx_matmul_ablation as mm_tool
     from mx_quantization_tpu_torch.tools import serving_bench as sb
     from mx_quantization_tpu_torch.tools.passprice_bench import \
         deltas as passprice_deltas
@@ -1096,12 +1115,14 @@ def main():
     K5, K6, K7 = "ln_modulate_quantize", "gelu_quantize", \
         "fused_topk_attention_qkv_t"
     K8 = "ablate_attention"
+    K9, K10, K11 = "mx_matmul", "kth_select", "lane_quantize"
     wrappers = {K1: mx_quantize, K2: ta.fused_topk_attention_qkv,
                 K3: ta.fused_topk_attention,
                 K4: ta.fused_topk_attention_tiled,
                 K5: lnq.ln_modulate_quantize,
                 K6: gelu_quantize, K7: ta.fused_topk_attention_qkv_t,
-                K8: ab.ablate_attention}
+                K8: ab.ablate_attention, K9: mxmm.mx_matmul,
+                K10: kthsel.kth_select, K11: laneq.lane_quantize}
 
     # ---- 1. device
     smi = subprocess.run(
@@ -1125,11 +1146,20 @@ def main():
     t0 = time.perf_counter()
     sources = (*ta.qkv_builds(), *ta.split_builds(),
                (lnq.SOURCE, lnq.DEFINES),
-               (ta.BLOCKS_SOURCE, ta.BLOCK_DEFINES), (ab.SOURCE, ()))
+               (ta.BLOCKS_SOURCE, ta.BLOCK_DEFINES), (ab.SOURCE, ()),
+               (mxmm.SOURCE, ()), (kthsel.SOURCE, ()), (laneq.SOURCE, ()))
+    def timed_build(sd):
+        t = time.perf_counter()
+        return build.build(*sd), time.perf_counter() - t
+
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(lambda sd: build.build(*sd), sources))
+        built = list(pool.map(timed_build, sources))
+    libs = [lib for lib, _ in built]
     print(f"[build] {[lib.name for lib in libs]} in "
           f"{time.perf_counter() - t0:.1f} s")
+    print("[build] per source (s): " + ", ".join(
+        f"{lib.name} {s:.1f}" for lib, s in
+        sorted(built, key=lambda b: -b[1])), flush=True)
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Function pro" in line:
@@ -2471,6 +2501,87 @@ def main():
           f"sites in {dt:.1f} s, launches {counts}", flush=True)
     stamp("ablation tools phase done")
 
+    # 7d. the measurement tools' path (K9, K10, K11): the three port tools
+    # at their points, with every count set to 0 just before and read just
+    # after; each ``run`` holds every variant bit for bit to its plain
+    # version before it times it
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+        w.sites.clear()
+    t0 = time.perf_counter()
+    try:
+        mm_rows = mm_tool.run("cuda")
+        kth_rows = kth_tool.run("cuda")
+        lane_rows = lane_tool.run("cuda")
+    except AssertionError as e:
+        fail(f"measurement tools: {e}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    path_launches["measurement tools"] = counts
+    kth_strats = [r for r in kth_rows if r["variant"] != "kthvalue"]
+    own = {K9: (mm_rows, mm_tool.REPS), K10: (kth_strats, kth_tool.REPS),
+           K11: (lane_rows, lane_tool.REPS)}
+    for n, (rows_, reps) in own.items():
+        if counts[n] != sum(r["launches"] for r in rows_) or \
+                any(r["launches"] < reps for r in rows_):
+            fail(f"measurement tools: {n} launched {counts[n]} times, "
+                 f"{[r['launches'] for r in rows_]} by variant")
+    if any(c for n, c in counts.items() if n not in (K1, K9, K10, K11)):
+        fail(f"measurement tools: launches {counts}: only K9, K10, K11 and "
+             "K1 (the tools' comparisons)")
+    for r in mm_rows:
+        print(f"[measure] K9 {r['linear']} {tuple(r['shape'])}: "
+              f"{r['ms']:.4f} ms x{r['launches']} (unfused {r['unfused_ms']:.4f}"
+              f" ms, plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} "
+              f"ms by {r['bound_by']}); bit-equal to its plain version; max "
+              f"|K9 - unfused| {r['max_diff_unfused']:.4g} (largest summation "
+              f"bound {r['max_sum_bound']:.4g}, bit-equal share "
+              f"{r['bit_equal_share']:.4f})", flush=True)
+        if not r["within_sum_bound"]:
+            fail(f"K9 at {r['linear']} is farther from the unfused path than "
+                 "the summation bound")
+    lib_ms = kth_rows[-1]["ms"]
+    for r in kth_strats:
+        print(f"[measure] K10 {r['variant']}: {r['ms']:.4f} ms "
+              f"x{r['launches']} (plain {r['plain_ms']:.2f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['steps']} "
+              f"steps; torch.kthvalue {lib_ms:.4f} ms); bit-equal to its "
+              f"plain version; equal to kthvalue: {r['equal_to_kthvalue']}",
+              flush=True)
+        if not r["equal_to_kthvalue"]:
+            fail(f"K10 {r['variant']} differs from torch.kthvalue")
+    for r in lane_rows:
+        print(f"[measure] K11 {tuple(r['site'])} {r['format']} bfloat "
+              f"{r['bfloat']}: {r['ms']:.4f} ms x{r['launches']} (K1 "
+              f"{r['k1_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}); bit-equal to its "
+              f"plain version; equal to K1: {r['equal_to_k1']}", flush=True)
+        if not r["equal_to_k1"]:
+            fail(f"K11 at {r['site']} {r['format']} differs from K1")
+
+    def tool_kernel(name, source, rows_, library_ms, **extra):
+        return dict(
+            name=name, route="cuda",
+            source=f"mx_quantization_tpu_torch/csrc/{source}",
+            replaces=tpu_site(name), launches=counts[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows_),
+            **{key: sum(r[key] for r in rows_) / len(rows_)
+               for key in ("ms", "plain_ms", "bound_ms")},
+            bound_by=collections.Counter(
+                r["bound_by"] for r in rows_).most_common(1)[0][0],
+            library_ms=library_ms, **extra, variants=rows_)
+    measure_kernels = [
+        tool_kernel(K9, mxmm.SOURCE, mm_rows, None, unfused_ms=sum(
+            r["unfused_ms"] for r in mm_rows) / len(mm_rows)),
+        tool_kernel(K10, kthsel.SOURCE, kth_strats, lib_ms),
+        tool_kernel(K11, laneq.SOURCE, lane_rows, None, k1_ms=sum(
+            r["k1_ms"] for r in lane_rows) / len(lane_rows))]
+    print(f"[measure] {len(mm_rows) + len(kth_strats) + len(lane_rows)} "
+          f"variants in {dt:.1f} s, launches {counts}", flush=True)
+    stamp("measurement tools phase done")
+
     # 7. DiT-XL/2 256^2 on the emulation engine (dit_mx_specs("ref"), the
     # JAX CLI's --engine ref: f32 activations, weights quantized on the
     # fly), EMULATION_DIT_IMAGES images with CFG, exact tier: no kernel
@@ -3071,7 +3182,7 @@ def main():
     kernels = [
         dict(name=K1, route="triton",
              source="mx_quantization_tpu_torch/ops/kernels/quantize.py",
-             replaces="mx_quantization_tpu/ops/kernels/quantize.py:119",
+             replaces=tpu_site(K1),
              launches=main_launches[K1], max_abs_err=k1_err,
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], bytes_ms=k1["bytes_ms"],
@@ -3079,27 +3190,27 @@ def main():
              sites=k1_sites),
         dict(name=K2, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu",
-             replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:1054",
+             replaces=tpu_site(K2),
              launches=main_launches[K2], max_abs_err=k2_err, ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None, sites=k2_sites),
         dict(name=K3, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_split.cu",
-             replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:805",
+             replaces=tpu_site(K3),
              launches=main_launches[K3], max_abs_err=k3_err, ms=k3["ms"],
              plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=None, sites=k3_sites,
              modes=k3_modes),
         dict(name=K4, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_split.cu",
-             replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:654",
+             replaces=tpu_site(K4),
              launches=main_launches[K4], max_abs_err=k4_err, ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=None, sites=k4_sites,
              modes=k4_modes),
         dict(name=K5, route="cuda",
              source="mx_quantization_tpu_torch/csrc/ln_modulate_quantize.cu",
-             replaces="mx_quantization_tpu/ops/kernels/quantize.py:205",
+             replaces=tpu_site(K5),
              launches=main_launches[K5], max_abs_err=errs[K5], ms=k5["ms"],
              plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
              bound_by=k5["bound_by"], bytes_ms=k5["bytes_ms"],
@@ -3107,7 +3218,7 @@ def main():
              sites=k5_sites),
         dict(name=K6, route="triton",
              source="mx_quantization_tpu_torch/ops/kernels/quantize.py",
-             replaces="mx_quantization_tpu/ops/kernels/quantize.py:289",
+             replaces=tpu_site(K6),
              launches=main_launches[K6], max_abs_err=errs[K6], ms=k6["ms"],
              plain_ms=k6["plain_ms"], bound_ms=k6["bound_ms"],
              bound_by=k6["bound_by"], bytes_ms=k6["bytes_ms"],
@@ -3115,7 +3226,7 @@ def main():
              sites=k6_sites),
         dict(name=K7, route="cuda",
              source="mx_quantization_tpu_torch/csrc/topk_attention_qkv.cu",
-             replaces="mx_quantization_tpu/ops/kernels/topk_attention.py:1130",
+             replaces=tpu_site(K7),
              launches=main_launches[K7], max_abs_err=errs[K7], ms=k7["ms"],
              plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"],
              bound_by=k7["bound_by"], library_ms=None, sites=k7_sites),
@@ -3139,7 +3250,7 @@ def main():
             bound_by=collections.Counter(
                 st["bound_by"] for st in sites).most_common(1)[0][0],
             library_ms=None, sites=sites))
-    kernels += ablate_kernels
+    kernels += ablate_kernels + measure_kernels
     stamp("kernel times done")
     print(json.dumps({"tiers": tiers, "servers": servers,
                       "endtask": endtask_stats, "training": training_stats,

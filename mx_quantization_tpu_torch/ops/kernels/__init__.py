@@ -11,6 +11,41 @@ BLOCK_SIZES = (8, 16, 32, 64, 128)
 # the same set for the CUDA sources, as the sum of its powers of two
 BLOCK_DEFINES = (("MX_BLOCK_MASK", sum(BLOCK_SIZES)),)
 
+# Every TPU kernel of the repository, as the line of its ``pl.pallas_call(``
+# (the JAX package's and the root tools'), and the port's kernel that
+# replaces it, by its wrapper's name
+_JAX = "mx_quantization_tpu/ops/kernels/"
+TPU_SITES = {
+    _JAX + "quantize.py:157": "mx_quantize",                       # K1
+    _JAX + "topk_attention.py:781": "fused_topk_attention_qkv",    # K2
+    _JAX + "topk_attention.py:890": "fused_topk_attention",        # K3
+    _JAX + "topk_attention.py:939": "fused_topk_attention_tiled",  # K4
+    _JAX + "quantize.py:235": "ln_modulate_quantize",              # K5
+    _JAX + "quantize.py:326": "gelu_quantize",                     # K6
+    _JAX + "topk_attention.py:1161": "fused_topk_attention_qkv_t",  # K7
+    # K8: the attention-ablation tools' cells
+    "tools/attnk_bench.py:119": "ablate_attention",
+    "tools/attnk_bench.py:258": "ablate_attention",
+    "tools/attnk_bench.py:341": "ablate_attention",
+    "tools/attnk_bench.py:464": "ablate_attention",
+    "tools/attnk3_bench.py:264": "ablate_attention",
+    "tools/servingk_bench.py:136": "ablate_attention",
+    "tools/servingk_bench.py:250": "ablate_attention",
+    "tools/passprice_bench.py:182": "ablate_attention",
+    "tools/mx_matmul_ablation.py:97": "mx_matmul",                 # K9
+    "tools/kth_bench.py:98": "kth_select",                         # K10
+    "tools/lanequant_bench.py:133": "lane_quantize",               # K11
+}
+
+
+def tpu_site(kernel: str) -> str:
+    """The one TPU site that the port's ``kernel`` replaces (K8, which
+    replaces eight, names each in its variants)."""
+    sites = [s for s, k in TPU_SITES.items() if k == kernel]
+    if len(sites) != 1:
+        raise ValueError(f"{kernel} replaces {len(sites)} TPU sites")
+    return sites[0]
+
 
 def records_grad(*tensors) -> bool:
     """Does autograd record a call on these tensors (grad enabled and one

@@ -1294,3 +1294,114 @@ def test_k8_counts_launches_and_refuses_outside_its_domain(cuda):
     with pytest.raises(NotImplementedError):
         topk_ablate.ablate_attention(wide, wide, wide, passes=0, k=154,
                                      scale=1.0)
+
+
+# K9-K11: the TPU measurement tools' kernels (mx_matmul_ablation,
+# kth_bench, lanequant_bench)
+_MM_FORMATS = ["int8", "int4", "int2", "fp8_e5m2", "fp8_e4m3", "fp6_e3m2",
+               "fp6_e2m3", "fp4", "float16", "bfloat16"]
+
+
+def _mixed_rows(shape, seed, dtype=torch.float32):
+    """Seeded N(0, 1) rows, each scaled by 2^s for s in [-20, 20], with an
+    all-zero and an all-subnormal row."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape).astype(np.float32)
+    x *= (2.0 ** rng.randint(-20, 21, size=shape[0])).astype(
+        np.float32)[:, None]
+    x[0] = 0.0
+    x[1] = rng.randn(shape[1]).astype(np.float32) * 1e-39
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("bs", list(_BLOCKS) + [32])
+@pytest.mark.parametrize("fmt", _MM_FORMATS)
+def test_k9_matches_plain(cuda, fmt, bs):
+    """K9 bit for bit against its plain version over every format and
+    block, scale bits 8 and 5, M and N off the 64 x 64 tiles, K off the
+    128-value chunks, A's rows scaled over 2^+-20 with zero and subnormal
+    rows (blocks of scale 0), and the two sides in different formats."""
+    from mx_quantization_tpu_torch.ops.kernels.mx_matmul import (
+        mx_matmul, mx_matmul_ref)
+    K = 5 * max(bs, 32) + bs
+    a = _mixed_rows((131, K), bs).to(cuda)
+    b = (0.02 * _normal((K, 77), bs + 1)).to(cuda)
+    for fb in (fmt, "int8", "bfloat16"):
+        for sb in (8, 5):
+            got = mx_matmul(a, b, fmt, fb, bs, sb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, mx_matmul_ref(a, b, fmt, fb, bs, sb)), \
+                (fb, sb)
+
+
+def test_k9_at_the_tool_point(cuda):
+    """K9 at DiT-XL/2's fc2 on 256 rows bit for bit, within the summation
+    bound of the unfused path, counting its launches; raises outside its
+    domain."""
+    from mx_quantization_tpu_torch.ops.kernels import mx_matmul as mm
+    from mx_quantization_tpu_torch.tools import mx_matmul_ablation as tool
+    a, b = tool.inputs(256, 4608, 1152, cuda)
+    before = mm.mx_matmul.launches
+    got = mm.mx_matmul(a, b)
+    assert mm.mx_matmul.launches == before + 1
+    assert torch.equal(got, mm.mx_matmul_ref(a, b))
+    qa, qb = mm.quantize_operands(a, b)
+    assert ((got - tool.unfused(a, qb)).abs() <=
+            mm.summation_bound(qa, qb)).all()
+    with pytest.raises(TypeError):
+        mm.mx_matmul(a.to(torch.bfloat16), b)
+    with pytest.raises(ValueError):
+        mm.mx_matmul(a, b, block_size=4)
+
+
+@pytest.mark.parametrize("k", [1, 2, 154, 255, 256])
+def test_k10_matches_plain_and_kthvalue(cuda, k):
+    """Each strategy bit for bit against its plain version and
+    ``torch.kthvalue``, on seeded N(0, 1) cells and on cells of few
+    values (ties, negatives, +-0, the ends of the key range)."""
+    from mx_quantization_tpu_torch.ops.kernels.kth_select import (
+        STRATEGIES, keys_of, kth_select, kth_select_ref)
+    rng = np.random.RandomState(k)
+    vals = np.array([-3.0e38, -2.0, -1.0, -0.5, -0.0, 0.0, 1.5, 3.0e38],
+                    np.float32)
+    for x in (_normal((9, 256, 256), k),
+              torch.from_numpy(vals[rng.randint(0, 8, (5, 256, 256))])):
+        x = x.to(cuda)
+        want = torch.kthvalue(keys_of(x), 256 - k + 1, dim=-1).values.to(
+            torch.float32)[..., None].expand(x.shape)
+        for strategy in STRATEGIES:
+            got = kth_select(x, k, strategy)
+            torch.cuda.synchronize()
+            assert torch.equal(got, kth_select_ref(x, k, strategy)), strategy
+            assert torch.equal(got, want), strategy
+
+
+@pytest.mark.parametrize("bs", list(_BLOCKS) + [32])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "int2", "fp8_e4m3",
+                                 "fp8_e5m2", "fp6_e3m2", "fp6_e2m3", "fp4"])
+def test_k11_matches_plain_and_k1(cuda, fmt, bs):
+    """K11 bit for bit against its plain version over every format and
+    block, f32 and bf16 in and out, bfloat 0 and 16, flush, scale bits 8
+    and 5, rows off any tile, and against K1 at bf16 in and out (each K1
+    specialization is a Triton compile); nomax against its plain
+    version."""
+    from mx_quantization_tpu_torch.ops.kernels.lane_quantize import (
+        lane_quantize, lane_quantize_ref)
+    base = _mixed_rows((37, 384), bs)
+    for din in (torch.float32, torch.bfloat16):
+        x = base.to(din).to(cuda)
+        for dout in (torch.float32, torch.bfloat16):
+            for bfloat in (0, 16):
+                for flush in (False, True):
+                    for sb in (8, 5):
+                        args = (fmt, bs, sb, dout, flush, bfloat)
+                        got = lane_quantize(x, *args)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, lane_quantize_ref(x, *args))
+                        if din == dout == torch.bfloat16 and bfloat == 16 \
+                                and not flush and sb == 8:
+                            assert torch.equal(got, mx_quantize(x, *args))
+        nomax = lane_quantize(x, fmt, bs, nomax=True)
+        assert torch.equal(nomax, lane_quantize_ref(x, fmt, bs, nomax=True))
+    with pytest.raises(ValueError):
+        lane_quantize(x, fmt, 4)
