@@ -1142,9 +1142,15 @@ def main():
         return (scale * torch.randn(*shape, generator=gen, device=dev)
                 ).to(dtype)
 
-    # ---- 2. build, one nvcc per source, all started together
+    # ---- 2. build, one nvcc per source, all started together (K2's and
+    # K7's builds at the other MX blocks: the parts phase 7b launches, the
+    # int grids' ex_pred by packed and radix selection at every block, and
+    # at TIMED_BLOCKS the paths' dense calls, part 4)
     t0 = time.perf_counter()
     sources = (*ta.qkv_builds(), *ta.split_builds(),
+               *(sd for bs in OTHER_BLOCKS for i, sd in
+                 enumerate(ta.qkv_builds(bs))
+                 if i < 2 or (i == 4 and bs in TIMED_BLOCKS)),
                (lnq.SOURCE, lnq.DEFINES),
                (ta.BLOCKS_SOURCE, ta.BLOCK_DEFINES), (ab.SOURCE, ()),
                (mxmm.SOURCE, ()), (kthsel.SOURCE, ()), (laneq.SOURCE, ()))
@@ -2119,9 +2125,11 @@ def main():
         model, qc, labels512, gen, num_steps=2, device=dev), 2)
     del model
 
-    # ---- 7b. the MX block sizes other than 32: K2, K7, K3 and K4 launch
-    # the blocks kernel (csrc/topk_attention_blocks.cu), K1, K5 and K6 their
-    # own with the block a launch argument.  Each against its plain version,
+    # ---- 7b. the MX block sizes other than 32: K2 and K7 on the int grids
+    # launch their source built for the block (ta.qkv_route's "qkv_bs", each
+    # launch's route checked), K3, K4 and an MXFP K2 the blocks kernel
+    # (csrc/topk_attention_blocks.cu), K1, K5 and K6 their own with the
+    # block a launch argument.  Each against its plain version,
     # bit for bit, at real sites (timed at TIMED_BLOCKS); then the paths end
     # to end, with their sites and launches kept apart from the block-32
     # paths', and each of their sites held to the plain version
@@ -2131,11 +2139,23 @@ def main():
     block_err = collections.defaultdict(float)
     block_timed = collections.defaultdict(list)
 
-    def check_block(name, bs, site, fn, ref, bound):
+    def served(name, fn):
+        """fn's result and, for K2 and K7, the routes (``ta.qkv_route``)
+        of the launches it made."""
+        routes = getattr(wrappers[name], "routes", None)
+        before = collections.Counter(routes or {})
+        got = fn()
+        return got, None if routes is None else \
+            ",".join(sorted(routes - before))
+
+    def check_block(name, bs, site, fn, ref, bound, expect=ta.ROUTE_QKV_BS,
+                    entry=True):
         """fn (the kernel) against ref (its plain version) bit for bit; at
         TIMED_BLOCKS also the kernel's time, the plain version's (one call)
-        and the bound (attention_bound's or elementwise_bound's triple)."""
-        got = fn()
+        and the bound (attention_bound's or elementwise_bound's triple),
+        kept for the kernel's entry of the ``kernels`` line where ``entry``.
+        K2 and K7 must take the route ``expect``."""
+        got, route = served(name, fn)
         want, pms = event_ms(ref)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -2143,14 +2163,19 @@ def main():
         if not torch.equal(got, want) or not torch.isfinite(got).all():
             fail(f"{name} at block {bs}, {site}, differs from its plain "
                  "version")
+        if route is not None and route != expect:
+            fail(f"{name} at block {bs}, {site}: route {route}, not {expect}")
         del got, want
         line = f"[block] {name} block {bs} {site}: bit-equal"
+        if route is not None:
+            line += f", route {route}"
         if bs in TIMED_BLOCKS:
             ms, queued = time_ms(fn, 5, warmup=1)
             bnd, by, terms = bound
-            block_timed[name].append(dict(
-                site=site, block_size=bs, ms=ms, plain_ms=pms, bound_ms=bnd,
-                bound_by=by, queued=queued))
+            if entry:
+                block_timed[name].append(dict(
+                    site=site, block_size=bs, ms=ms, plain_ms=pms,
+                    bound_ms=bnd, bound_by=by, queued=queued, route=route))
             line += (f"; {ms:.4f} ms (plain {pms:.2f} ms, bound {bnd:.4f} "
                      f"ms by {by}: { {t: round(v, 4) for t, v in terms.items()} })")
         print(line, flush=True)
@@ -2174,6 +2199,7 @@ def main():
     ada = randn(B, 1152)
     dit_kw = dict(k=154, scale=D ** -0.5, key_bits=8, bfloat=16,
                   out_dtype=torch.bfloat16)
+    fp8 = format_params("fp8_e4m3")
     for bs in OTHER_BLOCKS:
         for contract in ("serving", "exact"):
             kw = dict(dit_kw, contract=contract, block_size=bs)
@@ -2193,6 +2219,15 @@ def main():
                                                                 **kw),
                         attention_bound(DEIT_BATCH * 6, DEIT_TOKENS,
                                         DEIT_TOKENS, 64, 4, 4, 60, 32, True))
+        # the MXFP grids stay on the blocks kernel (CUDA cores)
+        kw = dict(dit_kw, contract="serving", block_size=bs, ebits=fp8[0],
+                  mbits=fp8[1], emax=fp8[2], max_norm=fp8[3])
+        check_block(K2, bs, f"DiT {(B, N, 3 * H * D)} bf16 fp8_e4m3 ex_pred "
+                    "k=154 serving",
+                    lambda: ta.fused_topk_attention_qkv(qkv, H, **kw),
+                    lambda: ta.fused_topk_attention_qkv_ref(qkv, H, **kw),
+                    attention_bound(B * H, N, N, D, 2, 2, 154, 8, True),
+                    expect=ta.ROUTE_BLOCKS, entry=False)
         Dp = -(-D // bs) * bs
         qk = torch.nn.functional.pad(
             qkv[..., :2 * H * D].reshape(B, N, 2, H, D), (0, Dp - D))
@@ -2288,6 +2323,7 @@ def main():
     stamp("block sizes: kernel checks done")
 
     sinks = (block_sites, block_launches)
+    qkv_routes = {n: collections.Counter(wrappers[n].routes) for n in (K2, K7)}
     base = init_dit(cfg, torch.Generator().manual_seed(0), dev,
                     randomize_all=True)
     for bs in TIMED_BLOCKS:
@@ -2374,6 +2410,14 @@ def main():
     del vmodel, vbatches
     print(f"[block] launches at the block sizes other than 32: "
           f"{block_launches}", flush=True)
+    # launches by route over the paths, their warm-up steps included
+    qkv_routes = {n: dict(wrappers[n].routes - c)
+                  for n, c in qkv_routes.items()}
+    print(f"[block] K2 and K7 routes on the block-size paths (warm-ups "
+          f"included): {qkv_routes}", flush=True)
+    if any(set(r) != {ta.ROUTE_QKV_BS} for r in qkv_routes.values()):
+        fail("K2 or K7 on the block-size paths off the blocks' tensor-core "
+             f"builds: {qkv_routes}")
 
     def site_calls(name, site):
         """The kernel's call and its plain version's on random inputs of a
@@ -2422,17 +2466,25 @@ def main():
 
     # every call site the block-size paths gave a kernel, held bit for bit
     # to its plain version on random inputs of its shapes and arguments
+    site_routes = collections.Counter()
     for name, sites in block_sites.items():
         for site in sites:
             fn, ref = site_calls(name, site)
-            got, want = fn(), ref()
+            (got, route), want = served(name, fn), ref()
             torch.cuda.synchronize()
             block_err[name] = max(block_err[name], (
                 got.float() - want.float()).abs().max().item())
             if not torch.equal(got, want) or not torch.isfinite(got).all():
                 fail(f"{name} at the block-size paths' site {site} differs "
                      "from its plain version")
+            if route is not None:
+                site_routes[(name, route)] += 1
+                if route != ta.ROUTE_QKV_BS:
+                    fail(f"{name} at the block-size paths' site {site}: "
+                         f"route {route}")
             del got, want, fn, ref
+    print(f"[block] K2 and K7 sites of the block-size paths by route: "
+          f"{dict(site_routes)}", flush=True)
     print(f"[block] each kernel at every site of the block-size paths "
           f"({ {n: len(s_) for n, s_ in block_sites.items()} } sites): "
           "bit-equal", flush=True)
@@ -3240,7 +3292,11 @@ def main():
         # the mean over the sites timed at TIMED_BLOCKS
         mean = {key: sum(st[key] for st in sites) / len(sites)
                 for key in ("ms", "plain_ms", "bound_ms")}
-        own = name in (K1, K5, K6)  # the block a launch argument
+        # K1, K5, K6: the block a launch argument; K2 and K7 on the int
+        # grids: their source built for the block; K3 and K4: the blocks
+        # kernel
+        own = name in (K1, K5, K6) or all(
+            st["route"] == ta.ROUTE_QKV_BS for st in sites)
         kernels.append(dict(
             name=f"{name} (blocks {', '.join(map(str, OTHER_BLOCKS))})",
             route=entry["route"] if own else "cuda",
@@ -3249,7 +3305,9 @@ def main():
             max_abs_err=block_err[name], **mean,
             bound_by=collections.Counter(
                 st["bound_by"] for st in sites).most_common(1)[0][0],
-            library_ms=None, sites=sites))
+            library_ms=None, sites=sites,
+            **({"qkv_routes": qkv_routes[name]} if name in qkv_routes
+               else {})))
     kernels += ablate_kernels + measure_kernels
     stamp("kernel times done")
     print(json.dumps({"tiers": tiers, "servers": servers,

@@ -1,6 +1,9 @@
-// Kernels K2, K7, K3 and K4 at the MX block sizes other than 32: fused MX
-// top-k attention in blocks of bs = 8, 16, 64 or 128 elements, with the
-// function, the summation orders and the C layouts of the block-32 kernels
+// Kernels K3 and K4 at the MX block sizes other than 32, and K2 and K7 there
+// on the MXFP grids and with true_ex's top-k (on the int grids K2 and K7
+// take topk_attention_qkv.cu built for the block, on the int8 tensor cores;
+// ops/kernels/topk_attention.py qkv_route): fused MX top-k attention in
+// blocks of bs = 8, 16, 64 or 128 elements, with the function, the
+// summation orders and the C layouts of the block-32 kernels
 // (topk_attention_qkv.cu: K2 from the fused qkv output, K7 from the
 // split-emission q/k and v; topk_attention_split.cu: K3 and K4 from split
 // q, k, v with an optional key bias).  The TPU kernels it replaces at these

@@ -19,9 +19,14 @@ shape, so that K4 can be held to K3 where both apply.  Both quantize each
 (row, head) cell's K side once, in a pre-pass of the same call, into a
 workspace their wrapper allocates.  Each source's note says what bounds it
 and how the design answers.
-At every MX block size but 32 the four entries launch one simpler kernel
+At the other MX block sizes (8, 16, 64, 128) K2 and K7 on the int grids
+launch ``SOURCE`` built for the block (``qkv_builds(block_size)``, nvcc
+-DMX_BS: the block-32 design with one exact int8 tensor-core sum per
+bs-block); there K2 and K7 on the MXFP grids and with true_ex, and K3 and K4
+at every such block, launch one simpler kernel
 (``csrc/topk_attention_blocks.cu``, the same function and summation orders,
-a warp per query row) instead of their block-32 kernel.
+a warp per query row on the CUDA cores).  ``qkv_route`` names the kernel of
+a K2 or K7 call; each wrapper counts its launches per route.
 ``fused_topk_attention_qkv``, ``fused_topk_attention_qkv_t``,
 ``fused_topk_attention`` and ``fused_topk_attention_tiled`` launch their
 kernel on a CUDA tensor and raise where they cannot; only a CPU tensor
@@ -33,9 +38,8 @@ below, which the wrappers, the eligibility checks of ``attention.py`` and
 
 Numerics (the kernels and their plain versions), per (batch row, head),
 in MX blocks of bs elements, bs in BLOCK_SIZES (the block sizes the TPU
-kernels take: they pad tokens to a multiple of 128, so bs divides 128; the
-tuned kernels take bs = 32, a simpler kernel every other bs, each summing
-in the orders below with bs in place of 32):
+kernels take: they pad tokens to a multiple of 128, so bs divides 128;
+every kernel sums in the orders below with bs in place of 32):
   * q and k MX-quantized along D (zero-padded to Dp = round_up(max(D, 8),
     bs)), v along the keys in bs-key blocks per column; an f32 input at
     bfloat=16 is first rounded to bf16 half away from zero; flush zeroes a
@@ -116,8 +120,8 @@ from . import BLOCK_DEFINES, BLOCK_SIZES, build, inference_only
 
 SOURCE = "topk_attention_qkv.cu"
 SPLIT_SOURCE = "topk_attention_split.cu"
-# K2, K7, K3 and K4 at the block sizes other than 32 (one build, bs a
-# launch argument)
+# K3 and K4 at the block sizes other than 32, and K2 and K7 there on the
+# MXFP grids and with true_ex (one build, bs a launch argument)
 BLOCKS_SOURCE = "topk_attention_blocks.cu"
 # K2 and K7 hold a whole head in shared memory: at most MAX_TOKENS tokens,
 # the TPU kernels' qkv entries' limit
@@ -139,7 +143,13 @@ SPLIT_DEFINES = K3_DEFINES + K4_DEFINES  # K3 and K4 share their source
 # ``split_builds``); the source's topk_attention_qkv_part and
 # topk_attention_split_part name the part that takes a call
 QKV_PARTS = 6
+# at the other blocks K2's and K7's build holds the int-grid parts alone
+# (0 .. 4: part 4 the packed kernel without a predictor), one build per
+# block (nvcc -DMX_BS)
+QKV_INT_PARTS = 5
 SPLIT_PARTS = 5
+# the kernels that serve a K2 or K7 call (``qkv_route``)
+ROUTE_QKV, ROUTE_QKV_BS, ROUTE_BLOCKS = "qkv", "qkv_bs", "blocks"
 # every predictor of the TPU kernels; the index is the C interface's number
 SPLIT_PRED_MODES = ("ex_pred", "two_step_leading_ones", "MXINT4", "partial_Q",
                     "partial_K", "true_ex", "threshold_ex", "ELSA")
@@ -561,9 +571,23 @@ def _check_proj(proj, D: int):
 
 
 def _int_route(ebits: int, pred: Optional[str]) -> bool:
-    """Do K3 and K4 take their int-grid kernel (tensor-core products)?
-    true_ex and the MXFP grids take the CUDA-core one."""
+    """Do K2, K3, K4 and K7 take their int-grid kernel (tensor-core
+    products)?  true_ex and the MXFP grids take the CUDA-core one."""
     return ebits == 0 and pred != "true_ex"
+
+
+def qkv_route(block_size: int, ebits: int, pred: Optional[str]) -> str:
+    """The kernel that serves a K2 or K7 call at MX block ``block_size``
+    with the activations' ``ebits`` and predictor ``pred`` (None for a dense
+    call or one without a predictor): ROUTE_QKV, ``SOURCE`` built for block
+    32 (int8 tensor cores on the int grids, its CUDA-core kernel on the MXFP
+    grids and with true_ex); ROUTE_QKV_BS, ``SOURCE`` built for the call's
+    block (``qkv_builds(block_size)``: the int grids at the other blocks, on
+    the int8 tensor cores); ROUTE_BLOCKS, ``BLOCKS_SOURCE`` (the MXFP grids
+    and true_ex at the other blocks, on the CUDA cores)."""
+    if block_size == 32:
+        return ROUTE_QKV
+    return ROUTE_QKV_BS if _int_route(ebits, pred) else ROUTE_BLOCKS
 
 
 def _split_score_sums(q: torch.Tensor, k_: torch.Tensor, fmt,
@@ -696,15 +720,20 @@ def _attention_ref(q: torch.Tensor, k_: torch.Tensor, v: torch.Tensor,
 # ----------------------------------------------------------------------
 # kernel wrapper
 # ----------------------------------------------------------------------
-def qkv_builds():
-    """(source, definitions) of each part of K2's and K7's build."""
-    return [(SOURCE, K2_DEFINES + (("QKV_PART", i),))
-            for i in range(QKV_PARTS)]
+def qkv_builds(block_size: int = 32):
+    """(source, definitions) of each part of K2's and K7's build at MX block
+    ``block_size``: QKV_PARTS at 32, the QKV_INT_PARTS int-grid parts at
+    the others."""
+    if block_size == 32:
+        return [(SOURCE, K2_DEFINES + (("QKV_PART", i),))
+                for i in range(QKV_PARTS)]
+    return [(SOURCE, K2_DEFINES + (("MX_BS", block_size), ("QKV_PART", i)))
+            for i in range(QKV_INT_PARTS)]
 
 
 @functools.cache
-def _qkv_library(part: int) -> ctypes.CDLL:
-    return bind_qkv_library(build.load(*qkv_builds()[part]))
+def _qkv_library(part: int, block_size: int = 32) -> ctypes.CDLL:
+    return bind_qkv_library(build.load(*qkv_builds(block_size)[part]))
 
 
 def bind_qkv_library(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -742,17 +771,24 @@ def _check_qkv_shape(name: str, N: int, D: int):
 
 
 def _qkv_lib(name: str, N: int, n_valid: int, D: int, kw):
-    """The library (the build part) that launches a K2 or K7 call; raises
-    where the kernel cannot take it."""
+    """The library (the build part, at the call's block) that launches a K2
+    or K7 call on ``SOURCE``; raises where the kernel cannot take it."""
     _check_qkv_shape(name, N, D)
-    part = _qkv_library(0).topk_attention_qkv_part(
+    bs = kw.get("block_size", 32)
+    part = _qkv_library(0, bs).topk_attention_qkv_part(
         *qkv_call_args(N, n_valid, D, kw))
     if part < 0:
         raise NotImplementedError(
             f"{name}: a cell of N={N}, D={D} with {kw['pred_mode']}, "
-            f"ebits={kw['ebits']}, key_bits={kw['key_bits']} does not fit a "
-            "block's shared memory (ROADMAP.md)")
-    return _qkv_library(part)
+            f"ebits={kw['ebits']}, key_bits={kw['key_bits']} at block {bs} "
+            "does not fit a block's shared memory (ROADMAP.md)")
+    return _qkv_library(part, bs)
+
+
+def _qkv_call_route(n_valid: int, kw) -> str:
+    """``qkv_route`` of a K2 or K7 call with the wrapper's keywords."""
+    pred = kw["pred_mode"] if kw["approx"] and kw["k"] < n_valid else None
+    return qkv_route(kw["block_size"], kw["ebits"], pred)
 
 
 def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
@@ -792,7 +828,8 @@ def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
     H = num_heads
     D = F // (3 * H)
     out = torch.empty(B, N, H * D, dtype=out_dtype, device=qkv.device)
-    if block_size != 32:
+    route = _qkv_call_route(N, kw)
+    if route == ROUTE_BLOCKS:
         _check_qkv_shape("K2", N, D)
         _launch_blocks("K2", 0, (qkv, None, None), None, None, out,
                        (B, H, N, N, D, N, 0), kw)
@@ -809,13 +846,15 @@ def fused_topk_attention_qkv(qkv: torch.Tensor, num_heads: int, *, k: int,
     fused_topk_attention_qkv.launches += 1
     fused_topk_attention_qkv.sites[
         (tuple(qkv.shape), qkv.dtype, num_heads, tuple(kw.items()))] += 1
+    fused_topk_attention_qkv.routes[route] += 1
     return out
 
 
-# launches, and launches per call site: (qkv shape, qkv dtype, heads,
-# keyword arguments)
+# launches, launches per call site (qkv shape, qkv dtype, heads, keyword
+# arguments) and per route (``qkv_route``)
 fused_topk_attention_qkv.launches = 0
 fused_topk_attention_qkv.sites = collections.Counter()
+fused_topk_attention_qkv.routes = collections.Counter()
 
 
 # ----------------------------------------------------------------------
@@ -863,7 +902,8 @@ def fused_topk_attention_qkv_t(qk_t: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"need k >= 1 and 1 <= n_valid <= N={N}, got k={k}, "
                          f"n_valid={n_valid}")
     out = torch.empty(B, N, H * D, dtype=out_dtype, device=qk_t.device)
-    if block_size != 32:
+    route = _qkv_call_route(n_valid, kw)
+    if route == ROUTE_BLOCKS:
         _check_qkv_shape("K7", N, D)
         _launch_blocks("K7", 1, (qk_t, v, None), None, None, out,
                        (B, H, N, int(n_valid), D, N, Dp), kw)
@@ -881,13 +921,15 @@ def fused_topk_attention_qkv_t(qk_t: torch.Tensor, v: torch.Tensor,
     fused_topk_attention_qkv_t.sites[
         (tuple(qk_t.shape), tuple(v.shape), qk_t.dtype, num_heads,
          tuple(kw.items()))] += 1
+    fused_topk_attention_qkv_t.routes[route] += 1
     return out
 
 
-# launches, and launches per call site: (qk_t shape, v shape, dtype, heads,
-# keyword arguments)
+# launches, launches per call site (qk_t shape, v shape, dtype, heads,
+# keyword arguments) and per route (``qkv_route``)
 fused_topk_attention_qkv_t.launches = 0
 fused_topk_attention_qkv_t.sites = collections.Counter()
+fused_topk_attention_qkv_t.routes = collections.Counter()
 
 
 # ----------------------------------------------------------------------

@@ -177,7 +177,7 @@ def main():
     out = {}
     for stop, lib in libs.items():
         bound = ta.bind_qkv_library(ctypes.CDLL(lib))
-        ta._qkv_library = lambda part, bound=bound: bound
+        ta._qkv_library = lambda part, block_size=32, bound=bound: bound
         print(f"[ladder] stop {stop}: {stops[stop]}", flush=True)
         out[stop] = tss.time_qkv_sites(ta, {"K2"}, dev, args.reps,
                                        args.sites)

@@ -3,15 +3,16 @@
 can be compared end to end within one run on one card.
 
     python3 mx_quantization_tpu_torch/tools/time_dit_steps.py \\
-        [--repo DIR] [--steps 20] [--images 32] [--save FILE.npz]
-        [--against FILE.npz]
+        [--repo DIR] [--steps 20] [--images 32] [--block-size 32]
+        [--save FILE.npz] [--against FILE.npz]
 
 ``--repo`` is the root of the checkout whose ``mx_quantization_tpu_torch``
 is imported (default: the one this file lies in).  Run the trees in
 separate processes, interleaved (A, B, B, A), and compare only numbers from
 one run.  The paths are ``chip_smoke.py``'s: random weights from seed 0,
 prequantized to bf16, ``--images`` class labels with CFG (twice the rows),
-ex_pred top-k k = 154 at key_bits 8, block 27 dense, bf16 activations; the
+ex_pred top-k k = 154 at key_bits 8, block 27 dense, bf16 activations, MX
+blocks of ``--block-size`` elements (the weights prequantized at it); the
 default path (K1, K2) and the fused opt-ins (K5, K6, K7), each tier, two
 warm steps, then ``--steps`` steps timed on the host clock around a
 synchronized run.  Prints the card's name and power limit, one line per
@@ -38,6 +39,7 @@ def main():
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--images", type=int, default=32)
+    ap.add_argument("--block-size", type=int, default=32)
     ap.add_argument("--save", default=None)
     ap.add_argument("--against", default=None)
     args = ap.parse_args()
@@ -64,8 +66,9 @@ def main():
     cfg = DiT_models["DiT-XL/2"](input_size=32)
     model = init_dit(cfg, torch.Generator().manual_seed(0), dev,
                      randomize_all=True)
-    model, specs = prequantize_weights(model, dit_mx_specs(),
-                                       serve_dtype=torch.bfloat16)
+    model, specs = prequantize_weights(
+        model, dataclasses.replace(dit_mx_specs(), block_size=args.block_size),
+        serve_dtype=torch.bfloat16)
     base = DiTQuantConfig(mx_specs=specs, mx_quant=True, top_k=True, k=154,
                           ex_pred=True, exclude_blocks=(27,),
                           topk_key_bits=8, activation_dtype="bfloat16")
@@ -85,8 +88,8 @@ def main():
             ms = 1e3 * (time.perf_counter() - t0) / args.steps
             out[f"{name} {contract}"] = ms
             latents[f"{name} {contract}"] = lat.float().cpu().numpy()
-            print(f"[step] {repo} DiT-XL/2 {name} {contract}: {ms:.2f} ms",
-                  flush=True)
+            print(f"[step] {repo} DiT-XL/2 block {args.block_size} {name} "
+                  f"{contract}: {ms:.2f} ms", flush=True)
     import numpy as np
     if args.save:
         np.savez(args.save, **latents)
@@ -96,7 +99,8 @@ def main():
             print(f"[latents] {key} against {args.against}: bit-equal "
                   f"{np.array_equal(lat, other[key])}, max |diff| "
                   f"{np.abs(lat - other[key]).max():.3e}", flush=True)
-    print(json.dumps({"repo": repo, "device": smi, "ms_per_step": out}))
+    print(json.dumps({"repo": repo, "device": smi,
+                      "block_size": args.block_size, "ms_per_step": out}))
     return 0
 
 

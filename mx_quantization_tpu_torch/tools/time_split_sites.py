@@ -5,7 +5,7 @@ card: K2 and K7 (``csrc/topk_attention_qkv.cu``), K3 and K4
 (``csrc/topk_attention_split.cu``).
 
     python3 mx_quantization_tpu_torch/tools/time_split_sites.py \
-        [--repo DIR] [--kernels K2,K7,K3,K4] [--build-only]
+        [--repo DIR] [--kernels K2,K7,K3,K4] [--block-size 32] [--build-only]
 
 ``--repo`` is the root of the checkout whose ``mx_quantization_tpu_torch``
 is imported (default: the one this file lies in); each checkout builds into
@@ -31,7 +31,9 @@ seeded generator (q and k scaled by 4, as ``chip_smoke.py`` times them):
     ex_pred k = 60 (H = 6), DeiT-base two_step k = 30 (H = 12), each tier.
 A site that a tree's kernel does not take (K2 or K7 in two_step before it
 served that mode) is reported as null.
-``--kernels`` picks the kernels (default: all four).
+``--kernels`` picks the kernels (default: all four); ``--block-size``
+times every site at that MX block (a tree's K2 and K7 take the kernel its
+``qkv_route`` names, or the blocks kernel where it has none).
 Prints the card's name and power limit, the ptxas lines of the build, one
 line per site, and last one JSON object with every time (ms per call,
 CUDA events, calls queued behind a GPU sleep).
@@ -138,15 +140,25 @@ def split_t_operands(qkv, heads, Dp):
     return qk_t.contiguous(), qkv[..., 2 * heads * D:].contiguous()
 
 
-def time_qkv_sites(ta, kernels, dev, reps=REPS, match=""):
+def qkv_route_of(ta, kw):
+    """The route the imported tree gives a K2 or K7 call (trees before
+    ``qkv_route``: the blocks kernel at every block but 32)."""
+    if hasattr(ta, "qkv_route"):
+        pred = kw["pred_mode"] if kw["approx"] else None
+        return ta.qkv_route(kw["block_size"], kw["ebits"], pred)
+    return "qkv" if kw["block_size"] == 32 else "blocks"
+
+
+def time_qkv_sites(ta, kernels, dev, reps=REPS, match="", block_size=32):
     """ms per call of K2 and K7 (those in ``kernels``) at QKV_SITES whose
-    label holds ``match``, each tier, through the wrappers of the imported
-    tree."""
+    label holds ``match``, each tier, at MX block ``block_size``, through
+    the wrappers of the imported tree."""
     import torch
     times = {}
     for kernel, label, shape, dtype, heads, kw in QKV_SITES:
         if kernel not in kernels or match not in label:
             continue
+        kw = dict(kw, block_size=block_size)
         gen = torch.Generator(device=dev).manual_seed(0)
         qkv = torch.randn(*shape, generator=gen, device=dev).to(
             getattr(torch, dtype))
@@ -170,15 +182,18 @@ def time_qkv_sites(ta, kernels, dev, reps=REPS, match=""):
                       f"({err})", flush=True)
                 continue
             times[f"{kernel} {label} {contract}"] = ms
-            print(f"[time] {kernel} {label} {contract}: {ms:.4f} ms",
-                  flush=True)
+            route = qkv_route_of(ta, dict(kw, approx=kw["approx"] and
+                                          kw["k"] < shape[1]))
+            print(f"[time] {kernel} {label} {contract} block {block_size} "
+                  f"({route}): {ms:.4f} ms", flush=True)
         del qkv, qk_t, v
     return times
 
 
-def time_split(ta, kernels, dev, reps=REPS):
+def time_split(ta, kernels, dev, reps=REPS, block_size=32):
     """ms per call of K3 and K4 (those in ``kernels``) at SITES, each tier,
-    through the wrappers of the imported tree."""
+    at MX block ``block_size``, through the wrappers of the imported
+    tree."""
     import torch
     fns = {"K3": ta.fused_topk_attention,
            "K4": getattr(ta, "fused_topk_attention_tiled", None)}
@@ -203,7 +218,7 @@ def time_split(ta, kernels, dev, reps=REPS):
             bias = ((~mask).float() * -10000.0)[:, None, None, :]
         for contract in ("serving", "exact"):
             call = dict(kw, out_dtype=getattr(torch, kw["out_dtype"]),
-                        contract=contract)
+                        contract=contract, block_size=block_size)
             ms = time_ms(lambda: fn(q, kx, vx, bias, **call), 1)
             if ms < 20:
                 ms = time_ms(lambda: fn(q, kx, vx, bias, **call), reps)
@@ -221,6 +236,7 @@ def main():
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--kernels", default="K2,K7,K3,K4")
+    ap.add_argument("--block-size", type=int, default=32)
     ap.add_argument("--build-only", action="store_true")
     args = ap.parse_args()
     chosen = set(args.kernels.split(","))
@@ -234,9 +250,17 @@ def main():
     # trees from before K4 name the split source's definitions K3_DEFINES
     # and trees from before the parted K2 build have one K2 library
     todo = []
-    if chosen & {"K2", "K7"}:
+    bs = args.block_size
+    if chosen & {"K2", "K7"} and bs == 32:
         todo += (ta.qkv_builds() if hasattr(ta, "qkv_builds")
                  else [(ta.SOURCE, ta.K2_DEFINES)])
+    elif chosen & {"K2", "K7"}:
+        try:  # trees with K2's and K7's int-grid builds per block
+            todo += ta.qkv_builds(bs)
+        except TypeError:
+            pass
+    if bs != 32:
+        todo.append((ta.BLOCKS_SOURCE, ta.BLOCK_DEFINES))
     if chosen & {"K3", "K4"} and hasattr(ta, "split_builds"):
         todo += ta.split_builds()
     elif chosen & {"K3", "K4"}:
@@ -262,9 +286,10 @@ def main():
                 print(f"[build] {line.strip()[:150]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    times = time_qkv_sites(ta, chosen, dev)
-    times.update(time_split(ta, chosen, dev))
-    print(json.dumps({"repo": repo, "device": smi, "ms": times}))
+    times = time_qkv_sites(ta, chosen, dev, block_size=bs)
+    times.update(time_split(ta, chosen, dev, block_size=bs))
+    print(json.dumps({"repo": repo, "device": smi, "block_size": bs,
+                      "ms": times}))
     return 0
 
 

@@ -223,3 +223,82 @@ def test_k4_key_limit_message_names_the_xla_path():
     assert "not done" not in msg
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ta.check_split_shape("K3", 64, ta.MAX_HEAD_DIM + 8)
+
+
+@pytest.mark.parametrize("bs", BLOCKS + (32,))
+def test_qkv_route_by_block_format_and_predictor(bs):
+    """``qkv_route``: at block 32 every K2 and K7 call takes the block-32
+    build; at the other blocks the int grids (a dense call, no predictor or
+    any predictor but true_ex) take the block's int8 tensor-core build and
+    the MXFP grids and true_ex's top-k the blocks kernel; the builds: six
+    parts at 32, the four int-grid parts with -DMX_BS at the others."""
+    fp8 = format_params("fp8_e4m3")[0]
+    for pred in (None,) + ta.QKV_PRED_MODES:
+        on_int = ta.ROUTE_BLOCKS if pred == "true_ex" else ta.ROUTE_QKV_BS
+        assert ta.qkv_route(bs, 0, pred) == (ta.ROUTE_QKV if bs == 32
+                                             else on_int)
+        assert ta.qkv_route(bs, fp8, pred) == (ta.ROUTE_QKV if bs == 32
+                                               else ta.ROUTE_BLOCKS)
+    # the call's predictor: none for a dense call or without approx
+    for k, approx, pred in ((20, True, "true_ex"), (64, True, None),
+                            (20, False, None)):
+        kw = dict(k=k, approx=approx, pred_mode="true_ex", block_size=bs,
+                  ebits=0)
+        assert ta._qkv_call_route(64, kw) == ta.qkv_route(bs, 0, pred)
+    builds = ta.qkv_builds(bs)
+    assert all(src == ta.SOURCE for src, _ in builds)
+    if bs == 32:
+        assert [dict(d) for _, d in builds] == [
+            dict(ta.K2_DEFINES, QKV_PART=i) for i in range(ta.QKV_PARTS)]
+    else:
+        assert [dict(d) for _, d in builds] == [
+            dict(ta.K2_DEFINES, MX_BS=bs, QKV_PART=i)
+            for i in range(ta.QKV_INT_PARTS)]
+
+
+@pytest.mark.parametrize("bs", BLOCKS + (32,))
+def test_int_block_sums_are_exact_at_every_block(bs):
+    """The premise of the int8 tensor-core products at every block: one
+    bs-block of worst-case grid points (int8's +-127 against +-127, the
+    exact tier's nonnegative probabilities' 127 against v's -127, MXINT4's
+    +-7 codes against partial's +-127, threshold_ex's +-2 codes) sums below
+    the kernels' exact int-to-float range (2^22) and so to float32 exactly;
+    ``_block_scaled_dot`` and ``_blockwise_exact`` equal the int64 sums,
+    scaled and added in block order; two_step's codes (|n| <= 12288, over
+    every d of the widest head) sum exactly in int64 from int32 byte-plane
+    sums and round to float32 once, as ``_exact_int_dot``."""
+    nb = max(1, 128 // bs)  # the widest head, MAX_HEAD_DIM = 128
+    rng = np.random.default_rng(bs)
+    for a_max, b_max in ((127, 127), (127, -127), (7, 127), (2, 2)):
+        signs = rng.choice([-1, 1], size=(2, 3, nb, bs))
+        a = torch.tensor(signs[0] * a_max, dtype=torch.float32)
+        b = torch.tensor(signs[1] * abs(b_max), dtype=torch.float32)
+        b[0] = -b_max * torch.sign(a[0])  # row 0: every product at the extreme
+        exact = torch.einsum("mkd,pkd->mpk", a.long(), b.long())
+        assert exact.abs().max() < 2 ** 22
+        assert exact.abs().max() == (a_max * abs(b_max) * bs if a_max else 0)
+        assert torch.equal(exact.float().long(), exact)  # f32 exact
+        ea = torch.tensor(rng.integers(-20, 20, size=(3, nb)))
+        eb = torch.tensor(rng.integers(-20, 20, size=(3, nb)))
+        want = None
+        for i in range(nb):
+            term = exact[..., i].float() * ta._pow2_sub(ea[:, None, i] - 6) \
+                * ta._pow2_sub(eb[None, :, i] - 6)
+            want = term if want is None else want + term
+        assert torch.equal(ta._block_scaled_dot(a, ea, b, eb, 6), want)
+        plain = None
+        for i in range(nb):
+            plain = exact[..., i].float() if plain is None else \
+                plain + exact[..., i].float()
+        assert torch.equal(ta._blockwise_exact(a, b), plain)
+    # two_step: n / 64 operands at the extremes, D = 128 in bs-blocks
+    n = torch.tensor(rng.choice([-1, 1], size=(2, 3, nb, bs)) * 12288)
+    total = torch.einsum("mkd,pkd->mp", n[0], n[1])
+    hi, lo = n >> 8, n & 255  # the kernel's byte planes: s8 high, u8 low
+    planes = [torch.einsum("mkd,pkd->mp", x, y) for x, y in
+              ((hi[0], hi[1]), (hi[0], lo[1]), (lo[0], hi[1]), (lo[0], lo[1]))]
+    assert max(p_.abs().max() for p_ in planes) < 2 ** 31
+    assert torch.equal((planes[0] << 16) + ((planes[1] + planes[2]) << 8)
+                       + planes[3], total)
+    got = ta._exact_int_dot(n[0].double() / 64, n[1].double() / 64)
+    assert torch.equal(got, (total.double() / 4096).float())

@@ -30,11 +30,11 @@ from mx_quantization_tpu_torch.ops.kernels.quantize import (
     gelu_quantize, gelu_quantize_ref, mx_quantize, mx_quantize_ref)
 from mx_quantization_tpu_torch.ops.kernels import topk_ablate
 from mx_quantization_tpu_torch.ops.kernels.topk_attention import (
-    MAX_TILED_KEYS, QKV_PRED_MODES, fused_topk_attention,
-    fused_topk_attention_qkv,
+    MAX_TILED_KEYS, QKV_INT_PARTS, QKV_PRED_MODES, ROUTE_BLOCKS, ROUTE_QKV,
+    ROUTE_QKV_BS, _qkv_library, fused_topk_attention, fused_topk_attention_qkv,
     fused_topk_attention_qkv_ref, fused_topk_attention_qkv_t,
     fused_topk_attention_qkv_t_ref, fused_topk_attention_ref,
-    fused_topk_attention_tiled)
+    fused_topk_attention_tiled, qkv_call_args, qkv_route)
 from mx_quantization_tpu_torch.ops.linear import mm_f32
 from mx_quantization_tpu_torch.predictors.elsa import orthogonal_matrix
 from mx_quantization_tpu_torch.tools import ablate_common
@@ -146,8 +146,10 @@ def test_k2_matches_plain(cuda, case, in_dtype, out_dtype):
 
 
 def _spread_qkv(B, N, H, D, seed, q_scales, k_scales):
-    """qkv whose q and k 32-d blocks are scaled by the given powers of two
-    (one per block), so that their MX exponents lie that far apart."""
+    """qkv whose q and k 32-d chunks are scaled by the given powers of two
+    (one per chunk), so that their MX exponents lie that far apart (at
+    blocks below 32 each block of a chunk shares its power, above 32 a
+    block spans powers)."""
     x = _normal((B, N, 3, H, D), seed)
     for side, scales in ((0, q_scales), (1, k_scales)):
         for blk, sc in enumerate(scales):
@@ -155,22 +157,30 @@ def _spread_qkv(B, N, H, D, seed, q_scales, k_scales):
     return x.reshape(B, N, 3 * H * D)
 
 
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("contract", ["exact", "serving"])
 @pytest.mark.parametrize("k", [9, 64])
 @pytest.mark.parametrize("scales", [
-    ((-12, 0, 12), (12, -12, 0)),      # blocks 12 binades apart
-    ((-60, 0, 0), (-60, 0, 0)),        # block 0: 2^(eq + ek - 12) < 2^-126
+    ((-12, 0, 12), (12, -12, 0)),      # chunks 12 binades apart
+    ((-60, 0, 0), (-60, 0, 0)),        # chunk 0: 2^(eq + ek - 12) < 2^-126
 ], ids=["spread", "underflow"])
-def test_k2_block_exponents_spread_and_underflow(cuda, contract, k, scales):
+def test_k2_block_exponents_spread_and_underflow(cuda, contract, k, scales,
+                                                 bs):
     """The true score's per-block sums and their power-of-two scales where
     d order and block order round differently, and where a block pair's
-    scale underflows: bit for bit at f32 output."""
+    scale underflows: bit for bit at f32 output, at every MX block (the
+    int8 tensor cores: the block-32 build at 32, the block's build at the
+    others)."""
     B, N, H, D = 2, 64, 2, 72
     x = _spread_qkv(B, N, H, D, 7, *scales).to(cuda)
-    kw = dict(k=k, scale=D ** -0.5, key_bits=8, bfloat=16, contract=contract)
+    kw = dict(k=k, scale=D ** -0.5, key_bits=8, bfloat=16, contract=contract,
+              block_size=bs)
+    route = ROUTE_QKV if bs == 32 else ROUTE_QKV_BS
+    before = fused_topk_attention_qkv.routes[route]
     got = fused_topk_attention_qkv(x, H, **kw)
     want = fused_topk_attention_qkv_ref(x, H, **kw)
     torch.cuda.synchronize()
+    assert fused_topk_attention_qkv.routes[route] == before + 1
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
 
@@ -1121,23 +1131,40 @@ _ALL_MODES = QKV_PRED_MODES + ("ELSA",)
 
 @pytest.mark.parametrize("bs", _BLOCKS)
 @pytest.mark.parametrize("mode", QKV_PRED_MODES)
-@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("fmt", ["int8", "int2", "fp8_e4m3"])
 def test_k2_k7_at_block_sizes(cuda, bs, mode, fmt):
-    """K2 and K7 at the block sizes other than 32 (the blocks kernel), bit
-    for bit to their plain versions: every qkv predictor on an int and an
-    MXFP grid, both tiers, bf16 in at key_bits 8 (DiT's) and f32 in at
-    key_bits 32, N = 200 (keys padded past a block) and the dense call."""
+    """K2 and K7 at the block sizes other than 32, bit for bit to their
+    plain versions and K7 equal to K2: every qkv predictor on two int grids
+    (the int8 tensor-core build of the block, ``qkv_route``'s ROUTE_QKV_BS;
+    true_ex's top-k calls the blocks kernel) and an MXFP grid (the blocks
+    kernel), both tiers, bf16 in at key_bits 8 (DiT's) and f32 in at
+    key_bits 32; N = 200 (keys padded past a block), the dense call, N =
+    256 at key_bits 8 in both tiers (DiT's packed-register bisection), N
+    = 512 at key_bits 32 (the radix select at the longest cell), and N =
+    512 at D = 128 in both tiers (the largest cell: at block 8 its k scales
+    are four times block 32's count)."""
     ebits, mbits, emax, max_norm, _ = format_params(fmt)
-    H, D, N = 2, 72, 200
-    for contract, dtype, kb, k in (("serving", torch.bfloat16, 8, 47),
-                                   ("exact", torch.float32, 32, 47),
-                                   ("exact", torch.bfloat16, 8, N)):
+    H = 2
+    for contract, dtype, kb, k, N, D in (
+            ("serving", torch.bfloat16, 8, 47, 200, 72),
+            ("exact", torch.float32, 32, 47, 200, 72),
+            ("exact", torch.bfloat16, 8, 200, 200, 72),
+            ("serving", torch.bfloat16, 8, 154, 256, 72),
+            ("exact", torch.bfloat16, 8, 154, 256, 72),
+            ("exact", torch.float32, 32, 200, 512, 72),
+            ("serving", torch.bfloat16, 16, 200, 512, 128),
+            ("exact", torch.bfloat16, 8, 200, 512, 128)):
         qkv = (2 * _normal((2, N, 3 * H * D), bs + len(mode))).to(dtype).to(
             cuda)
         kw = dict(k=k, scale=D ** -0.5, key_bits=kb, block_size=bs,
                   bfloat=16 if dtype == torch.bfloat16 else 0, flush=True,
                   pred_mode=mode, contract=contract, out_dtype=dtype,
                   ebits=ebits, mbits=mbits, emax=emax, max_norm=max_norm)
+        route = qkv_route(bs, ebits, mode if k < N else None)
+        assert route == (ROUTE_QKV_BS if ebits == 0 and (
+            mode != "true_ex" or k >= N) else ROUTE_BLOCKS)
+        before = (fused_topk_attention_qkv.routes[route],
+                  fused_topk_attention_qkv_t.routes[route])
         got = fused_topk_attention_qkv(qkv, H, **kw)
         want = fused_topk_attention_qkv_ref(qkv, H, **kw)
         Dp = -(-D // bs) * bs
@@ -1148,9 +1175,34 @@ def test_k2_k7_at_block_sizes(cuda, bs, mode, fmt):
                                         qkv[..., 2 * H * D:].contiguous(), H,
                                         n_valid=N, **kw)
         torch.cuda.synchronize()
+        assert (fused_topk_attention_qkv.routes[route],
+                fused_topk_attention_qkv_t.routes[route]) == (
+                    before[0] + 1, before[1] + 1), route
         assert torch.isfinite(got).all()
-        assert torch.equal(got, want), (contract, kb, k)
-        assert torch.equal(k7, got), (contract, kb, k)
+        assert torch.equal(got, want), (contract, kb, k, N, D)
+        assert torch.equal(k7, got), (contract, kb, k, N, D)
+
+
+@pytest.mark.parametrize("bs", _BLOCKS)
+def test_qkv_block_builds_take_every_int_cell(cuda, bs):
+    """Every K2/K7 cell on the int grids that block 32 takes, the block's
+    build takes too (a part of its four, no raise): N and D up to the
+    domain's 512 and 128, each predictor of the int route and the dense
+    call, every key_bits, both tiers."""
+    lib, lib32 = _qkv_library(0, bs), _qkv_library(0)
+    modes = [m for m in QKV_PRED_MODES if m != "true_ex"]
+    for N in (1, 31, 33, 200, 256, 257, 449, 481, 500, 512):
+        for D in (1, 8, 9, 64, 72, 100, 120, 121, 127, 128):
+            for kw in [dict(k=N, approx=False, pred_mode=modes[0])] + [
+                    dict(k=max(1, N // 2), approx=True, pred_mode=m)
+                    for m in modes]:
+                for kb in (8, 16, 32):
+                    for contract in ("serving", "exact"):
+                        args = qkv_call_args(N, N, D, dict(
+                            kw, key_bits=kb, contract=contract, ebits=0))
+                        assert lib32.topk_attention_qkv_part(*args) >= 0
+                        part = lib.topk_attention_qkv_part(*args)
+                        assert 0 <= part < QKV_INT_PARTS, (args, part)
 
 
 @pytest.mark.parametrize("bs", _BLOCKS)
